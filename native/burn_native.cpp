@@ -1,4 +1,4 @@
-// Native host-side components for burn_raymarching_tpu.
+// Native host-side components for burn_raymarching.
 //
 // The reference implements all host-side work in compiled Rust; these are
 // the TPU-framework equivalents in C++, exposed through a C ABI for ctypes:

@@ -34,8 +34,8 @@ import numpy as np
 
 
 def make_dataset(n_pixels: int, seed: int = 0):
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.data.dataset import RayDataset
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.data.dataset import RayDataset
 
     side = 256
     ro, rd = create_camera_rays(side, side, [0.0, 0.5, -2.5], [0, 0, 0], 50.0)
@@ -47,7 +47,7 @@ def make_dataset(n_pixels: int, seed: int = 0):
 
 
 def make_params(m: int, seed: int = 0):
-    from burn_raymarching_tpu.models.scene import init_scene_params, pad_params
+    from burn_raymarching.models.scene import init_scene_params, pad_params
 
     rng = np.random.default_rng(seed)
     params = init_scene_params(m)
@@ -58,14 +58,14 @@ def make_params(m: int, seed: int = 0):
 
 
 def bench_variant(cfg, ds, padded, mask, variant: str, steps: int, reps: int):
-    from burn_raymarching_tpu.ops.culling import build_clusters
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.ops.culling import build_clusters
+    from burn_raymarching.train.loop import Trainer
 
     tr = Trainer(cfg, ds, log=lambda s: None)
     if variant == "xla":
         tr.culled_march_normal_fn = None
     elif tr.culled_march_normal_fn is None:
-        from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+        from burn_raymarching.ops.pallas.culled_march_kernel import (
             culled_march_normals_pallas,
         )
 
@@ -132,7 +132,7 @@ def main():
                     choices=["member", "monopole"])
     args = ap.parse_args()
 
-    from burn_raymarching_tpu.config import LossConfig, TrainConfig
+    from burn_raymarching.config import LossConfig, TrainConfig
 
     cfg = TrainConfig(
         loss=LossConfig(repulsion_far_field=args.rep_far),

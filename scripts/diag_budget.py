@@ -37,25 +37,25 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.models.scene import (
         activate,
         init_scene_params_cloud,
         pad_params,
     )
-    from burn_raymarching_tpu.ops.culling import (
+    from burn_raymarching.ops.culling import (
         selection_overflow,
         tile_cones,
     )
-    from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+    from burn_raymarching.ops.pallas.culled_march_kernel import (
         culled_march_normals_pallas,
     )
-    from burn_raymarching_tpu.render.preview import CullRender
-    from burn_raymarching_tpu.tools import generate
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.utils.padding import bucket_size
+    from burn_raymarching.render.preview import CullRender
+    from burn_raymarching.tools import generate
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.utils.padding import bucket_size
 
     if args.prior == "dense":
         dense_c, _, _ = generate.knot_scene(args.init_n)

@@ -63,21 +63,21 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from burn_raymarching_tpu.config import (
+    from burn_raymarching.config import (
         LossConfig,
         RenderConfig,
         TrainConfig,
     )
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.models.scene import (
         init_scene_params_cloud,
         pad_params,
     )
-    from burn_raymarching_tpu.tools import generate
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
-    from burn_raymarching_tpu.utils.padding import bucket_size
+    from burn_raymarching.tools import generate
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.train.loop import Trainer, build_dataset
+    from burn_raymarching.utils.padding import bucket_size
 
     os.makedirs(args.out, exist_ok=True)
     lr_sc = [float(x) for x in args.lr_scales.split(",")]
@@ -138,8 +138,8 @@ def main(argv=None):
 
     # Culling telemetry on the init scene, one batch of tiles.
     if cfg.use_culling:
-        from burn_raymarching_tpu.models.scene import activate
-        from burn_raymarching_tpu.ops.culling import (
+        from burn_raymarching.models.scene import activate
+        from burn_raymarching.ops.culling import (
             select_tile_primitives,
             selection_overflow,
             tile_cones,

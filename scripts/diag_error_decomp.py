@@ -71,19 +71,19 @@ def main(argv=None):
 
         jax.config.update("jax_platforms", "cpu")
 
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import (
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import (
         load_cameras,
         load_scene_json,
     )
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.models.scene import (
         pad_params,
         raw_from_physical,
     )
-    from burn_raymarching_tpu.render.preview import CullRender, render_tiled
-    from burn_raymarching_tpu.train.evaluate import encode_u8
-    from burn_raymarching_tpu.utils.padding import bucket_size
+    from burn_raymarching.render.preview import CullRender, render_tiled
+    from burn_raymarching.train.evaluate import encode_u8
+    from burn_raymarching.utils.padding import bucket_size
 
     scene = load_scene_json(args.scene
                             or os.path.join(args.run, "scene_c5.json"))
@@ -102,7 +102,7 @@ def main(argv=None):
 
     cull = None
     if jax.default_backend() == "tpu":
-        from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+        from burn_raymarching.ops.pallas.culled_march_kernel import (
             culled_march_normals_pallas,
         )
 

@@ -67,19 +67,19 @@ def main(argv=None):
 
     import jax
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import (
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import (
         load_cameras,
         load_scene_json,
     )
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.models.scene import (
         pad_params,
         raw_from_physical,
     )
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.train.loop import build_dataset
-    from burn_raymarching_tpu.utils.padding import bucket_size
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.train.loop import build_dataset
+    from burn_raymarching.utils.padding import bucket_size
 
     scene = load_scene_json(os.path.join(args.run, "scene_c5.json"))
     raw = raw_from_physical(scene["centers"], scene["colors"],
@@ -88,8 +88,8 @@ def main(argv=None):
                             ambient=float(scene["ambient_intensity"][0]))
     padded, mask = pad_params(raw, bucket_size(scene["num_spheres"]))
 
-    from burn_raymarching_tpu.config import RenderConfig
-    from burn_raymarching_tpu.train.refine import (
+    from burn_raymarching.config import RenderConfig
+    from burn_raymarching.train.refine import (
         geometry_refine,
         sample_fg_tile_batches,
     )
@@ -108,7 +108,7 @@ def main(argv=None):
 
     kern = None
     if jax.default_backend() == "tpu":
-        from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+        from burn_raymarching.ops.pallas.culled_march_kernel import (
             culled_march_normals_pallas,
         )
 
@@ -118,7 +118,7 @@ def main(argv=None):
     tgts = [load_image_as_array(c["file"]) for c in cams]
 
     def full_psnr(pp):
-        from burn_raymarching_tpu.render.preview import CullRender
+        from burn_raymarching.render.preview import CullRender
 
         return evaluate_views(
             pp, cams, tgts, args.size, args.size, mask=mask,
@@ -133,7 +133,7 @@ def main(argv=None):
     if args.bias == "residual":
         import jax.numpy as jnp
 
-        from burn_raymarching_tpu.train.residual import (
+        from burn_raymarching.train.residual import (
             primitive_residual_scores,
         )
 

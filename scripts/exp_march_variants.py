@@ -155,10 +155,10 @@ def variant_march(ro, rd, t0, prim, c_sq, k_arr, num_steps, tile_n, clamp,
 
 
 def main():
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.models.scene import activate, init_scene_params, pad_params
-    from burn_raymarching_tpu.ops.march import march_xla
-    from burn_raymarching_tpu.ops.sdf import scene_normal
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.models.scene import activate, init_scene_params, pad_params
+    from burn_raymarching.ops.march import march_xla
+    from burn_raymarching.ops.sdf import scene_normal
 
     rng = np.random.default_rng(0)
     params = init_scene_params(100)
@@ -175,7 +175,7 @@ def main():
     t_ref = march_xla(ro, rd, centers, radii, k, mask=mask, num_steps=40)
     # Reattach step, then normals at p_final (same as the shipped kernel).
     t_col = t_ref.reshape(-1, 1)
-    from burn_raymarching_tpu.ops.sdf import scene_sdf
+    from burn_raymarching.ops.sdf import scene_sdf
     d_last = scene_sdf(ro + rd * t_col, centers, radii, k, mask=mask)
     p_final = ro + rd * (t_col + d_last.reshape(-1, 1))
     nrm_ref = scene_normal(p_final, centers, radii, k, mask=mask)

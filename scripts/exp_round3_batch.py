@@ -192,7 +192,7 @@ def ensure_hard_dataset():
     data = "runs/c4_hard/data"
     if os.path.exists(os.path.join(data, "cameras.json")):
         return
-    from burn_raymarching_tpu.tools import generate
+    from burn_raymarching.tools import generate
 
     print("--- generating hard-silhouette 30-view 512px dataset ---",
           flush=True)

@@ -45,7 +45,7 @@ def _save(name, payload):
 
 
 def _config1(seed=0):
-    from burn_raymarching_tpu.config import TrainConfig
+    from burn_raymarching.config import TrainConfig
 
     return TrainConfig(cameras_json="/root/reference/data/cameras.json",
                        checkpoint_dir=None, seed=seed,
@@ -54,7 +54,7 @@ def _config1(seed=0):
 
 
 def _eval(tr, cfg, padded, mask, cams, tgts):
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
+    from burn_raymarching.train.evaluate import evaluate_views
 
     return evaluate_views(padded, cams, tgts, cfg.width, cfg.height,
                           mask=mask, smooth_k=cfg.max_smooth_k,
@@ -65,10 +65,10 @@ def _eval(tr, cfg, padded, mask, cams, tgts):
 def dist_parity():
     """Config-1 exact recipe: Trainer vs DistributedTrainer((1,1) mesh) on
     the real chip — PSNR parity and wall overhead."""
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.parallel.distributed import DistributedTrainer
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.parallel.distributed import DistributedTrainer
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = _config1()
     cams = load_cameras(cfg.cameras_json)
@@ -110,9 +110,9 @@ def model_gap(m=6400, steps=100, budget=1024, data_dir="runs/c5/data",
     import jax
     import numpy as np
 
-    from burn_raymarching_tpu.config import RenderConfig, TrainConfig
-    from burn_raymarching_tpu.models.scene import init_scene_params_cloud
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import RenderConfig, TrainConfig
+    from burn_raymarching.models.scene import init_scene_params_cloud
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = TrainConfig(
         batch_size=batch, width=size, height=size,
@@ -135,8 +135,8 @@ def model_gap(m=6400, steps=100, budget=1024, data_dir="runs/c5/data",
     for name in ("fused", "xla_twin"):
         import jax.numpy as jnp
 
-        from burn_raymarching_tpu.models.scene import pad_params
-        from burn_raymarching_tpu.train.optimizer import anneal_for_step
+        from burn_raymarching.models.scene import pad_params
+        from burn_raymarching.train.optimizer import anneal_for_step
 
         tr = Trainer(cfg, ds, log=lambda s: None)
         if name == "xla_twin":
@@ -174,9 +174,9 @@ def model_gap(m=6400, steps=100, budget=1024, data_dir="runs/c5/data",
 
 def exact_polish(best_seed=4, rounds=3):
     """Greedy polish on the best exact-mode seed (VERDICT r2 item 6)."""
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = _config1(seed=best_seed)
     cams = load_cameras(cfg.cameras_json)
@@ -200,9 +200,9 @@ def turbo_seeds(n=10):
     sigma should be materially smaller on the SAME seeds."""
     import numpy as np
 
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg0 = _config1()
     cams = load_cameras(cfg0.cameras_json)

@@ -57,7 +57,7 @@ def bench_large_baseline():
 
 
 def _config1(seed=0, **kw):
-    from burn_raymarching_tpu.config import TrainConfig
+    from burn_raymarching.config import TrainConfig
 
     return TrainConfig(cameras_json="/root/reference/data/cameras.json",
                        checkpoint_dir=None, seed=seed,
@@ -66,7 +66,7 @@ def _config1(seed=0, **kw):
 
 
 def _eval_cfg1(tr, cfg, padded, mask, cams, tgts):
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
+    from burn_raymarching.train.evaluate import evaluate_views
 
     return evaluate_views(padded, cams, tgts, cfg.width, cfg.height,
                           mask=mask, smooth_k=cfg.max_smooth_k,
@@ -81,10 +81,10 @@ def dist_overhead(reps=4):
     ~+-1 s (~10%) of host jitter — take the min over reps-1 warm runs."""
     import numpy as np
 
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.parallel.distributed import DistributedTrainer
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.parallel.distributed import DistributedTrainer
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     # The warm-wall estimator needs at least one post-compile rep
     # (walls[1:] below): reps=1 would min() an empty list (ADVICE r4).
@@ -125,9 +125,9 @@ def turbo_guard_seeds(n=10):
     10/10 >= 32.8 at ~1x run cost."""
     import numpy as np
 
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg0 = _config1()
     cams = load_cameras(cfg0.cameras_json)
@@ -177,7 +177,7 @@ def model_gap_kernel(steps=100, reps=3):
     import jax.numpy as jnp
     import numpy as np
 
-    from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+    from burn_raymarching.ops.pallas.culled_march_kernel import (
         culled_march_normals_pallas,
     )
 

@@ -178,13 +178,13 @@ def c4_guard_ab(steps=500, seeds=(0, 1)):
     post-composition (the guard only acts during staged training)."""
     import numpy as np
 
-    from burn_raymarching_tpu.config import (
+    from burn_raymarching.config import (
         DensityConfig, LossConfig, RenderConfig, TrainConfig,
     )
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     data = "runs/c4_r2/data"
     cams = load_cameras(os.path.join(data, "cameras.json"))

@@ -49,7 +49,7 @@ def rep_step(steps=50, reps=3):
     far-field modes, K=256 (the docs/PARITY.md large-scene shape)."""
     import bench_large as bl
 
-    from burn_raymarching_tpu.config import LossConfig, TrainConfig
+    from burn_raymarching.config import LossConfig, TrainConfig
 
     out = {"committed_ms": {"member": 7.61, "monopole": 6.94}}
     ds = bl.make_dataset(10 * 256 * 256)
@@ -80,10 +80,10 @@ def dist_overhead_auto(reps=3):
     spc=100 (PSNR-identity arm). Warm walls are min over reps-1."""
     import numpy as np
 
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.parallel.distributed import DistributedTrainer
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.parallel.distributed import DistributedTrainer
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     reps = max(int(reps), 2)
     out = {}

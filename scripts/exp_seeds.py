@@ -45,11 +45,11 @@ def main(argv=None):
 
     import numpy as np
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     os.makedirs(args.out, exist_ok=True)
     base = TrainConfig(

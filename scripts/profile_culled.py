@@ -63,22 +63,22 @@ def main():
     ap.add_argument("--warm-steps", type=int, default=16)
     args = ap.parse_args()
 
-    from burn_raymarching_tpu.data.dataset import (
+    from burn_raymarching.data.dataset import (
         gather_batch,
         sample_batch_indices,
     )
-    from burn_raymarching_tpu.models.scene import activate
-    from burn_raymarching_tpu.ops.culling import (
+    from burn_raymarching.models.scene import activate
+    from burn_raymarching.ops.culling import (
         build_clusters,
         select_tile_primitives,
         select_tile_primitives_hier,
         tile_cones,
     )
-    from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+    from burn_raymarching.ops.pallas.culled_march_kernel import (
         culled_march_normals_pallas,
     )
-    from burn_raymarching_tpu.render.culled import render_diff_culled
-    from burn_raymarching_tpu.train.loss import cluster_repulsion
+    from burn_raymarching.render.culled import render_diff_culled
+    from burn_raymarching.train.loss import cluster_repulsion
 
     from bench_large import make_dataset, make_params  # noqa: E402
 
@@ -200,7 +200,7 @@ def main():
           f"{timed(scan_wrap(rep), jnp.zeros(()),):7.3f} ms")
 
     # --- fused (Pallas) cluster repulsion fwd+bwd ---
-    from burn_raymarching_tpu.ops.pallas.repulsion_kernel import (
+    from burn_raymarching.ops.pallas.repulsion_kernel import (
         cluster_repulsion_fused,
     )
 

@@ -52,8 +52,8 @@ def scan_wrap(body):
 
 
 def main():
-    from burn_raymarching_tpu.models.scene import activate
-    from burn_raymarching_tpu.ops.culling import build_clusters
+    from burn_raymarching.models.scene import activate
+    from burn_raymarching.ops.culling import build_clusters
 
     from bench_large import make_params  # noqa: E402
 

@@ -61,10 +61,10 @@ def main():
 
     import functools
 
-    from burn_raymarching_tpu.models.scene import activate
-    from burn_raymarching_tpu.ops.culling import build_clusters
-    from burn_raymarching_tpu.ops.pallas import repulsion_kernel as rk
-    from burn_raymarching_tpu.train.loss import cluster_repulsion
+    from burn_raymarching.models.scene import activate
+    from burn_raymarching.ops.culling import build_clusters
+    from burn_raymarching.ops.pallas import repulsion_kernel as rk
+    from burn_raymarching.train.loss import cluster_repulsion
 
     from bench_large import make_params  # noqa: E402
 

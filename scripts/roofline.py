@@ -52,9 +52,9 @@ def timed(fn, *args, reps=3):
 
 
 def main():
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.models.scene import init_scene_params, pad_params
-    from burn_raymarching_tpu.ops.pallas import march_shade_pallas
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.models.scene import init_scene_params, pad_params
+    from burn_raymarching.ops.pallas import march_shade_pallas
 
     rng = np.random.default_rng(0)
     params = init_scene_params(100)

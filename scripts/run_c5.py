@@ -228,7 +228,7 @@ def main(argv=None):
     data_dir = args.data or os.path.join(args.out, "data")
     os.makedirs(args.out, exist_ok=True)
 
-    from burn_raymarching_tpu.tools import generate
+    from burn_raymarching.tools import generate
 
     if not os.path.exists(os.path.join(data_dir, "cameras.json")):
         print(f"--- generating {args.views}-view {args.size}px dataset ---")
@@ -237,22 +237,22 @@ def main(argv=None):
                        "--views", str(args.views),
                        "--gt-k", "128", "--gt-sharp", "40"])
 
-    from burn_raymarching_tpu.config import (
+    from burn_raymarching.config import (
         DensityConfig,
         LossConfig,
         RenderConfig,
         TrainConfig,
     )
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.models.scene import (
         init_scene_params_cloud,
         pad_params,
         raw_from_physical,
     )
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
-    from burn_raymarching_tpu.utils.padding import bucket_size
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.train.loop import Trainer, build_dataset
+    from burn_raymarching.utils.padding import bucket_size
 
     init_points_path = os.path.join(data_dir, "points.json")
     if args.prior == "dense":
@@ -332,7 +332,7 @@ def main(argv=None):
     print(f"Total training pixels: {dataset.num_total_pixels} "
           f"(fg {dataset.num_fg})")
     if args.distributed:
-        from burn_raymarching_tpu.parallel.distributed import (
+        from burn_raymarching.parallel.distributed import (
             DistributedTrainer,
         )
 
@@ -400,7 +400,7 @@ def main(argv=None):
         # Post-training-only mode: load an exported scene and run just the
         # greedy composition (polish/refine/alternate) on it — lets later
         # passes stack gated rounds without re-paying the schedule.
-        from burn_raymarching_tpu.data.scene_io import load_scene_json
+        from burn_raymarching.data.scene_io import load_scene_json
 
         scene = load_scene_json(args.from_scene)
         raw = raw_from_physical(

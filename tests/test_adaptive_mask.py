@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.render.diff import adaptive_coverage, render_diff
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.render.diff import adaptive_coverage, render_diff
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ def test_subpixel_primitive_gets_usable_center_gradient():
 
 def test_culled_matches_dense_with_adaptive_mask(scene):
     c, col, r, ld, amb = scene
-    from burn_raymarching_tpu.render.culled import render_diff_culled
+    from burn_raymarching.render.culled import render_diff_culled
 
     ro, rd = create_camera_rays(16, 16, [0.0, 0.0, -2.5], [0, 0, 0], 50.0)
     px_angle = 2.0 * np.tan(np.radians(25.0)) / 16.0
@@ -97,7 +97,7 @@ def test_culled_matches_dense_with_adaptive_mask(scene):
 
 def test_gradients_finite_and_padded_slots_zero(scene):
     c, col, r, ld, amb = scene
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.models.scene import (
         SceneParams,
         pad_params,
         scene_forward,

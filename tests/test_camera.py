@@ -3,7 +3,7 @@ src/camera.rs semantics)."""
 
 import numpy as np
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
+from burn_raymarching.data.camera import create_camera_rays
 
 
 def _oracle_rays(width, height, eye, target, fov_deg):

@@ -24,7 +24,7 @@ import sys
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.tools.colmap_to_json import qvec2rotmat
+from burn_raymarching.tools.colmap_to_json import qvec2rotmat
 
 
 def rotmat2qvec(R):
@@ -66,9 +66,9 @@ def capture(tmp_path_factory):
     8-camera orbit + 1 broken outlier pose, written as COLMAP TXT."""
     import jax.numpy as jnp
 
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.data.image_io import save_array_as_image
-    from burn_raymarching_tpu.render.gt import render_gt
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.data.image_io import save_array_as_image
+    from burn_raymarching.render.gt import render_gt
 
     root = tmp_path_factory.mktemp("capture")
     img_dir = root / "images"
@@ -126,7 +126,7 @@ def capture(tmp_path_factory):
 
 
 def test_capture_chain_end_to_end(capture, monkeypatch):
-    from burn_raymarching_tpu.tools import (
+    from burn_raymarching.tools import (
         chromakey,
         colmap_to_json,
         process_cameras,
@@ -179,16 +179,16 @@ def test_capture_chain_end_to_end(capture, monkeypatch):
     np.testing.assert_allclose(pts + shift, gt_pts, atol=1e-5)
 
     # --- Stage 4: train on the chain's own outputs, hold out view 7 ---
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras, save_cameras
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras, save_cameras
+    from burn_raymarching.models.scene import (
         init_scene_params_cloud,
         pad_params,
     )
-    from burn_raymarching_tpu.train.evaluate import evaluate_views
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
-    from burn_raymarching_tpu.utils.padding import bucket_size
+    from burn_raymarching.train.evaluate import evaluate_views
+    from burn_raymarching.train.loop import Trainer, build_dataset
+    from burn_raymarching.utils.padding import bucket_size
 
     all_cams = load_cameras("cameras.json")
     save_cameras(all_cams[:-1], "cameras_train.json")

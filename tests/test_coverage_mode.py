@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.ops.march import march_xla
-from burn_raymarching_tpu.ops.sdf import scene_sdf
-from burn_raymarching_tpu.render.diff import adaptive_coverage, render_diff
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.ops.march import march_xla
+from burn_raymarching.ops.sdf import scene_sdf
+from burn_raymarching.render.diff import adaptive_coverage, render_diff
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +88,7 @@ def test_gaussian_render_is_sigmoid_render_recovered(scene):
 
 def test_culled_matches_dense_gaussian(scene):
     c, col, r, ld, amb = scene
-    from burn_raymarching_tpu.render.culled import render_diff_culled
+    from burn_raymarching.render.culled import render_diff_culled
 
     ro, rd = create_camera_rays(16, 16, [0.0, 0.0, -2.5], [0, 0, 0], 50.0)
     dense = render_diff(ro, rd, c, col, r, ld, amb, 32.0,
@@ -102,7 +102,7 @@ def test_culled_matches_dense_gaussian(scene):
 
 def test_gradients_finite_padded_zero(scene):
     c, col, r, ld, amb = scene
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.models.scene import (
         SceneParams,
         pad_params,
         scene_forward,
@@ -132,7 +132,7 @@ def test_gaussian_mode_closes_gap_to_gt_forward(scene):
     mask family and sharpness, the trainable forward of the GT params is
     much closer to the GT renderer's target than with the sigmoid mask —
     i.e. the family mismatch really was a ceiling term."""
-    from burn_raymarching_tpu.render.gt import render_gt
+    from burn_raymarching.render.gt import render_gt
 
     c, col, r, ld, amb = scene
     ro, rd = create_camera_rays(32, 32, [0.0, 0.0, -2.5], [0, 0, 0], 50.0)
@@ -161,10 +161,10 @@ def test_coverage_mode_stage_schedule(tmp_path, monkeypatch):
     equals an all-gaussian run seeded with the same stage-1 inputs."""
     import os
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
-    from burn_raymarching_tpu.config import RenderConfig
+    from burn_raymarching.config import RenderConfig
 
     cfg = TrainConfig(
         batch_size=256, stages=2, steps_per_stage=8, steps_per_call=8,
@@ -201,11 +201,11 @@ def test_coverage_schedule_stage_program_differs():
 
     import jax
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.models.scene import init_scene_params, pad_params
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.models.scene import init_scene_params, pad_params
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
-    from burn_raymarching_tpu.config import RenderConfig
+    from burn_raymarching.config import RenderConfig
 
     cfg = TrainConfig(
         batch_size=256, stages=2, steps_per_stage=4, steps_per_call=4,
@@ -244,10 +244,10 @@ def test_mask_sharpness_stage_schedule():
     cfg, and the no-schedule path returns the prebuilt step fn."""
     import os
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
-    from burn_raymarching_tpu.config import RenderConfig
+    from burn_raymarching.config import RenderConfig
 
     cfg = TrainConfig(
         batch_size=256, stages=3, steps_per_stage=4, steps_per_call=4,
@@ -295,8 +295,8 @@ def test_schedule_final_mode_must_match_eval_forward():
 
     import pytest as pt
 
-    from burn_raymarching_tpu.config import DensityConfig, TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import DensityConfig, TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg0 = TrainConfig(batch_size=256, use_pallas=False,
                        checkpoint_dir=None,
@@ -329,7 +329,7 @@ def test_load_cameras_resolves_json_relative_paths(tmp_path):
     import json
     import os
 
-    from burn_raymarching_tpu.data.scene_io import load_cameras
+    from burn_raymarching.data.scene_io import load_cameras
 
     d = tmp_path / "cap"
     (d / "images_nobg").mkdir(parents=True)

@@ -10,16 +10,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.ops.culling import (
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.ops.culling import (
     gather_tile_tables,
     select_tile_primitives,
     tile_cones,
 )
-from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+from burn_raymarching.ops.pallas.culled_march_kernel import (
     culled_march_normals_pallas,
 )
-from burn_raymarching_tpu.render.culled import render_diff_culled
+from burn_raymarching.render.culled import render_diff_culled
 
 TILE = 64
 K_BUDGET = 4
@@ -64,8 +64,8 @@ def test_kernel_render_matches_xla(scene):
 
 def test_kernel_t_normal_match_xla_internals(scene):
     """Direct t/normal comparison against a hand-run XLA culled march."""
-    from burn_raymarching_tpu.ops.march import T_MAX
-    from burn_raymarching_tpu.render.culled import (
+    from burn_raymarching.ops.march import T_MAX
+    from burn_raymarching.render.culled import (
         _tile_normals,
         _tile_soft_min,
     )
@@ -106,8 +106,8 @@ def test_kernel_t_normal_match_xla_internals(scene):
 
 def test_kernel_warm_start_matches_xla(scene):
     """t_init + reduced steps equals the XLA march from the same roots."""
-    from burn_raymarching_tpu.ops.march import T_MAX
-    from burn_raymarching_tpu.render.culled import _tile_soft_min
+    from burn_raymarching.ops.march import T_MAX
+    from burn_raymarching.render.culled import _tile_soft_min
 
     ro, rd, centers, colors, radii, _, _ = scene
     k = jnp.float32(32.0)
@@ -192,8 +192,8 @@ def test_ragged_tile_t_padding(scene):
 def test_trainer_culled_kernel_path(reference_dir, tmp_path, monkeypatch):
     """End-to-end: the trainer's culled precompute branch (kernel in
     interpret mode) trains finitely, warm-start cache included."""
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = TrainConfig(
         batch_size=512, stages=1, steps_per_stage=4, steps_per_call=4,
@@ -227,8 +227,8 @@ def test_trainer_culled_kernel_path(reference_dir, tmp_path, monkeypatch):
 def test_trainer_culled_kernel_cold_path(reference_dir, tmp_path,
                                          monkeypatch):
     """Cold (non-warm) culled kernel branch: full march_steps per step."""
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = TrainConfig(
         batch_size=512, stages=1, steps_per_stage=2, steps_per_call=2,
@@ -255,7 +255,7 @@ def test_trainer_culled_kernel_cold_path(reference_dir, tmp_path,
 def test_xla_twin_matches_kernel(scene):
     """render/culled.culled_march_normals_xla (used by the sharded step and
     non-TPU warm start) == the fused kernel on identical tables."""
-    from burn_raymarching_tpu.render.culled import culled_march_normals_xla
+    from burn_raymarching.render.culled import culled_march_normals_xla
 
     ro, rd, centers, colors, radii, _, _ = scene
     k = jnp.float32(18.5)

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.ops.culling import (
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.ops.culling import (
     cone_point_distance,
     select_tile_primitives,
     tile_cones,
 )
-from burn_raymarching_tpu.render.culled import render_diff_culled
-from burn_raymarching_tpu.render.diff import render_diff
+from burn_raymarching.render.culled import render_diff_culled
+from burn_raymarching.render.diff import render_diff
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +120,7 @@ def test_small_budget_keeps_strongest(scene):
 # --- Hierarchical (two-level) selection ---
 
 def test_build_clusters_partitions_live_primitives(scene):
-    from burn_raymarching_tpu.ops.culling import build_clusters
+    from burn_raymarching.ops.culling import build_clusters
 
     centers, _, _, _, _, _, _ = scene
     m = centers.shape[0]
@@ -131,7 +131,7 @@ def test_build_clusters_partitions_live_primitives(scene):
 
 
 def test_cluster_bounds_contain_member_spheres(scene):
-    from burn_raymarching_tpu.ops.culling import build_clusters, cluster_bounds
+    from burn_raymarching.ops.culling import build_clusters, cluster_bounds
 
     centers, _, radii, _, _, _, _ = scene
     cl = build_clusters(centers, group=8)
@@ -145,7 +145,7 @@ def test_cluster_bounds_contain_member_spheres(scene):
 
 
 def test_hier_selection_matches_flat(scene):
-    from burn_raymarching_tpu.ops.culling import (
+    from burn_raymarching.ops.culling import (
         build_clusters, select_tile_primitives_hier)
 
     centers, _, radii, _, _, ro, rd = scene
@@ -163,8 +163,8 @@ def test_hier_selection_matches_flat(scene):
 
 
 def test_hier_culled_render_matches_dense(scene):
-    from burn_raymarching_tpu.ops.culling import build_clusters
-    from burn_raymarching_tpu.render.diff import render_diff
+    from burn_raymarching.ops.culling import build_clusters
+    from burn_raymarching.render.diff import render_diff
 
     centers, colors, radii, light, ambient, ro, rd = scene
     cl = build_clusters(centers, group=8)
@@ -178,7 +178,7 @@ def test_hier_culled_render_matches_dense(scene):
 
 
 def test_hier_selection_with_mask_excludes_padded(scene):
-    from burn_raymarching_tpu.ops.culling import (
+    from burn_raymarching.ops.culling import (
         build_clusters, select_tile_primitives_hier)
 
     centers, _, radii, _, _, ro, rd = scene
@@ -195,7 +195,7 @@ def test_hier_selection_with_mask_excludes_padded(scene):
 
 
 def test_cluster_overflow_zero_at_full_budget(scene):
-    from burn_raymarching_tpu.ops.culling import build_clusters, cluster_overflow
+    from burn_raymarching.ops.culling import build_clusters, cluster_overflow
 
     centers, _, radii, _, _, ro, rd = scene
     cones = tile_cones(ro, rd, 128)

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from burn_raymarching_tpu.train.density import (
+from burn_raymarching.train.density import (
     _softplus,
     _softplus_inv,
     prune_and_split,
@@ -113,8 +113,8 @@ def test_merge_redundant_stacks():
     """merge_cell (TPU-native extension): a 10-deep stack in one grid cell
     collapses to one primitive with mean center/color and MAX radius; a
     far-away primitive is untouched."""
-    from burn_raymarching_tpu.config import DensityConfig
-    from burn_raymarching_tpu.train.density import (
+    from burn_raymarching.config import DensityConfig
+    from burn_raymarching.train.density import (
         merge_redundant,
         prune_and_split,
     )

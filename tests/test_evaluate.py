@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from burn_raymarching_tpu.train.evaluate import encode_u8, psnr_u8
+from burn_raymarching.train.evaluate import encode_u8, psnr_u8
 
 
 def test_psnr_identical_is_inf():
@@ -31,13 +31,13 @@ def test_render_tiled_matches_unchunked_and_culled():
     the culled route matches dense when the budget covers every primitive."""
     import jax.numpy as jnp
 
-    from burn_raymarching_tpu.data.camera import create_camera_rays
-    from burn_raymarching_tpu.models.scene import (
+    from burn_raymarching.data.camera import create_camera_rays
+    from burn_raymarching.models.scene import (
         init_scene_params,
         pad_params,
         scene_forward,
     )
-    from burn_raymarching_tpu.render.preview import CullRender, render_tiled
+    from burn_raymarching.render.preview import CullRender, render_tiled
 
     params = init_scene_params(7)
     padded, mask = pad_params(params, 8)

@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.data.image_io import load_image_as_array, save_array_as_image
-from burn_raymarching_tpu.render.gt import render_gt
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.data.image_io import load_image_as_array, save_array_as_image
+from burn_raymarching.render.gt import render_gt
 
 # Dataset-generator ground truth (reference src/bin/generate.rs:29-40).
 GT_CENTERS = jnp.asarray([[-0.3, 0.0, 0.0], [0.0, 0.0, 0.0], [0.3, 0.0, 0.0]],

@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.models.scene import SceneParams, scene_forward
-from burn_raymarching_tpu.ops.march import march_xla
-from burn_raymarching_tpu.ops.sdf import scene_sdf
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.models.scene import SceneParams, scene_forward
+from burn_raymarching.ops.march import march_xla
+from burn_raymarching.ops.sdf import scene_sdf
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +111,7 @@ def test_soft_min_grad_check():
                     jnp.float32)
     from jax.test_util import check_grads
 
-    from burn_raymarching_tpu.ops.sdf import soft_min
+    from burn_raymarching.ops.sdf import soft_min
 
     check_grads(lambda x: soft_min(x, 10.0).sum(), (d,), order=1,
                 modes=("rev",), atol=1e-2, rtol=1e-2)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.config import LossConfig
-from burn_raymarching_tpu.models.scene import SceneParams
-from burn_raymarching_tpu.train.loss import compute_loss
+from burn_raymarching.config import LossConfig
+from burn_raymarching.models.scene import SceneParams
+from burn_raymarching.train.loss import compute_loss
 
 
 def _np_softplus(x):
@@ -116,8 +116,8 @@ def test_cluster_repulsion_approximates_exact():
     import jax
     import jax.numpy as jnp
 
-    from burn_raymarching_tpu.ops.culling import build_clusters
-    from burn_raymarching_tpu.train.loss import cluster_repulsion
+    from burn_raymarching.ops.culling import build_clusters
+    from burn_raymarching.train.loss import cluster_repulsion
 
     def exact(centers, mask):
         m = centers.shape[0]
@@ -174,9 +174,9 @@ def test_fringe_weight_reference_parity_and_boost():
     import jax.numpy as jnp
     import numpy as np
 
-    from burn_raymarching_tpu.config import LossConfig
-    from burn_raymarching_tpu.models.scene import init_scene_params
-    from burn_raymarching_tpu.train.loss import compute_loss
+    from burn_raymarching.config import LossConfig
+    from burn_raymarching.models.scene import init_scene_params
+    from burn_raymarching.train.loss import compute_loss
 
     params = init_scene_params(3)
     out = jnp.zeros((4, 3), jnp.float32)

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.ops.culling import tile_cones
-from burn_raymarching_tpu.utils.morton import (
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.ops.culling import tile_cones
+from burn_raymarching.utils.morton import (
     morton2,
     morton_permutation,
     multi_view_morton_permutation,

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.native import (
+from burn_raymarching.native import (
     camera_rays_native,
     is_available,
     prune_and_split_native,
 )
-from burn_raymarching_tpu.train.density import prune_and_split
+from burn_raymarching.train.density import prune_and_split
 
 pytestmark = pytest.mark.skipif(not is_available(),
                                 reason="native toolchain unavailable")
@@ -36,7 +36,7 @@ def test_density_native_matches_numpy_with_injected_dirs():
         nc, ncol, nr, stats = prune_and_split_native(
             centers, colors, radii, init, stage, 5, seed=1, dirs=dirs)
         # NumPy oracle with the same dirs: recompute holds/splits manually.
-        from burn_raymarching_tpu.train.density import (
+        from burn_raymarching.train.density import (
             _sigmoid, _softplus, _softplus_inv)
 
         er = _softplus(radii[:, 0])
@@ -89,7 +89,7 @@ def test_density_native_stats_match_numpy_path():
 
 
 def test_camera_rays_native_matches_python():
-    from burn_raymarching_tpu.data.camera import create_camera_rays
+    from burn_raymarching.data.camera import create_camera_rays
 
     for pose in ([0.0, 0.5, -2.5], [2.5, 0.0, 0.1], [0.0, 2.5, -0.001]):
         ro_j, rd_j = create_camera_rays(64, 48, pose, [0, 0, 0], 50.0)

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from burn_raymarching_tpu.config import TrainConfig
-from burn_raymarching_tpu.train.optimizer import (
+from burn_raymarching.config import TrainConfig
+from burn_raymarching.train.optimizer import (
     anneal_for_step,
     lr_for_step,
     make_optimizer,
@@ -102,8 +102,8 @@ def test_folded_decay_drifts_at_full_lr_without_data_gradient():
 
     import jax.numpy as jnp
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.models.scene import SceneParams
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.models.scene import SceneParams
 
     params = SceneParams(
         centers=jnp.full((4, 3), 0.8),
@@ -140,8 +140,8 @@ def test_lr_scale_zero_freezes_group(reference_dir):
     import jax.numpy as jnp
     import numpy as np
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = TrainConfig(
         batch_size=256, stages=1, steps_per_stage=10, steps_per_call=10,
@@ -155,7 +155,7 @@ def test_lr_scale_zero_freezes_group(reference_dir):
     finally:
         os.chdir(cwd)
     tr = Trainer(cfg, ds, log=lambda s: None)
-    from burn_raymarching_tpu.models.scene import init_scene_params, pad_params
+    from burn_raymarching.models.scene import init_scene_params, pad_params
     params = init_scene_params(cfg.init_n)
     import jax
 
@@ -177,10 +177,10 @@ def test_lr_scale_centers_stage_schedule(reference_dir):
     import jax
     import numpy as np
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.models.scene import init_scene_params
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
-    from burn_raymarching_tpu.train.step_body import lr_scale_tree
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.models.scene import init_scene_params
+    from burn_raymarching.train.loop import Trainer, build_dataset
+    from burn_raymarching.train.step_body import lr_scale_tree
 
     cfg = TrainConfig(
         batch_size=256, stages=2, steps_per_stage=10, steps_per_call=10,

@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.ops.march import march_xla
-from burn_raymarching_tpu.ops.pallas.march_shade_kernel import (
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.ops.march import march_xla
+from burn_raymarching.ops.pallas.march_shade_kernel import (
     march_shade_pallas,
 )
-from burn_raymarching_tpu.ops.sdf import scene_normal
+from burn_raymarching.ops.sdf import scene_normal
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +77,7 @@ def test_normals_match_xla_six_tap(scene):
                                 50.0)
     t_pl, n_pl = _kernel(ro, rd, centers, radii, 32.0)
     t = jnp.asarray(t_pl)
-    from burn_raymarching_tpu.ops.sdf import scene_sdf
+    from burn_raymarching.ops.sdf import scene_sdf
 
     p = ro + rd * t
     p_final = ro + rd * (t + scene_sdf(p, centers, radii, 32.0))

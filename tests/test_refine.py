@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.config import TrainConfig
-from burn_raymarching_tpu.models.scene import (
+from burn_raymarching.config import TrainConfig
+from burn_raymarching.models.scene import (
     init_scene_params,
     pad_params,
 )
-from burn_raymarching_tpu.train.loop import build_dataset
-from burn_raymarching_tpu.train.refine import (
+from burn_raymarching.train.loop import build_dataset
+from burn_raymarching.train.refine import (
     geometry_refine,
     sample_fg_tile_batches,
 )
@@ -82,9 +82,9 @@ def test_trainer_refine_geometry_production_path(setup, tmp_path,
     scene re-exported."""
     import json
 
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.loop import Trainer
 
     cfg, ds = setup
     import dataclasses
@@ -110,7 +110,7 @@ def test_trainer_refine_geometry_production_path(setup, tmp_path,
 
 
 def test_trainer_refine_requires_culled_config(setup):
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.train.loop import Trainer
 
     cfg, ds = setup
     import dataclasses
@@ -119,7 +119,7 @@ def test_trainer_refine_requires_culled_config(setup):
                                 dataset_order="raster", use_pallas=False,
                                 checkpoint_dir=None)
     tr = Trainer(dense, ds, log=lambda s: None)
-    from burn_raymarching_tpu.models.scene import init_scene_params
+    from burn_raymarching.models.scene import init_scene_params
 
     padded, mask = pad_params(init_scene_params(7), 8)
     with pytest.raises(ValueError, match="use_culling"):
@@ -131,7 +131,7 @@ def test_refine_cli_e2e(tmp_path, monkeypatch):
     train → refine → export chain (VERDICT r3 item 4 'Done' bar)."""
     import json
 
-    from burn_raymarching_tpu.tools import train_cli
+    from burn_raymarching.tools import train_cli
 
     monkeypatch.chdir(tmp_path)
     train_cli.main([
@@ -171,10 +171,10 @@ def test_trainer_refine_residual_bias_smoke(setup, tmp_path, monkeypatch):
     """proposal_bias='residual' scores and runs end-to-end."""
     import dataclasses
 
-    from burn_raymarching_tpu.config import DensityConfig
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.config import DensityConfig
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.loop import Trainer
 
     cfg, ds = setup
     cams = load_cameras(cfg.cameras_json)[:1]
@@ -273,7 +273,7 @@ def test_refine_fringe_weighted_acceptance(setup):
 
 
 def test_light_refine_moves_only_light(setup):
-    from burn_raymarching_tpu.train.refine import light_refine
+    from burn_raymarching.train.refine import light_refine
 
     cfg, ds = setup
     params = init_scene_params(7)
@@ -303,7 +303,7 @@ def test_refine_budget_cap_is_config_and_logged(setup):
     (ADVICE r4)."""
     import dataclasses
 
-    from burn_raymarching_tpu.train.refine import _capped_budget
+    from burn_raymarching.train.refine import _capped_budget
 
     cfg, ds = setup
     logs = []
@@ -330,9 +330,9 @@ def test_trainer_refine_widened_composition(setup, tmp_path, monkeypatch):
     (colors + light + fringe acceptance + annealed chain)."""
     import dataclasses
 
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
+    from burn_raymarching.train.loop import Trainer
 
     cfg, ds = setup
     cams = load_cameras(cfg.cameras_json)[:1]
@@ -359,7 +359,7 @@ def test_auto_chunk_scales_with_cull_budget(setup):
     budget itself capped at REFINE_MAX_BUDGET — c5's 4096-budget proposal
     program faulted the TPU worker deterministically (round 4, three
     times, chunk 64 AND 32)."""
-    from burn_raymarching_tpu.train.refine import (
+    from burn_raymarching.train.refine import (
         REFINE_MAX_BUDGET,
         _auto_chunk,
     )

@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.ops.culling import build_clusters
-from burn_raymarching_tpu.ops.pallas.repulsion_kernel import (
+from burn_raymarching.ops.culling import build_clusters
+from burn_raymarching.ops.pallas.repulsion_kernel import (
     cluster_repulsion_fused,
 )
-from burn_raymarching_tpu.train.loss import cluster_repulsion
+from burn_raymarching.train.loss import cluster_repulsion
 
 fused = functools.partial(cluster_repulsion_fused, interpret=True)
 
@@ -115,8 +115,8 @@ def test_monopole_approximates_member():
 
 def test_compute_loss_routes_fused():
     """compute_loss(repulsion_fn=...) equals the XLA route end-to-end."""
-    from burn_raymarching_tpu.models.scene import init_scene_params, pad_params
-    from burn_raymarching_tpu.train.loss import compute_loss
+    from burn_raymarching.models.scene import init_scene_params, pad_params
+    from burn_raymarching.train.loss import compute_loss
 
     centers, mask, cl, n_valid = make_cloud(64, seed=9)
     params = init_scene_params(64)
@@ -147,7 +147,7 @@ def test_static_prep_matches_live_prep_exactly():
     """With tables built from the SAME centers, the static path must
     reproduce the on-the-fly path bit-for-bit (value and gradient) on
     both the XLA and the fused route, both far-field modes."""
-    from burn_raymarching_tpu.train.loss import build_repulsion_static
+    from burn_raymarching.train.loss import build_repulsion_static
 
     centers, mask, cl, n_valid = make_cloud(200, seed=7)
     static = build_repulsion_static(centers, cl, mask)
@@ -176,7 +176,7 @@ def test_static_prep_carries_no_center_gradient():
     """The frozen tables are non-differentiable by construction: moving
     the centers the tables were built from must not change the gradient
     path (tables are constants under AD)."""
-    from burn_raymarching_tpu.train.loss import build_repulsion_static
+    from burn_raymarching.train.loss import build_repulsion_static
 
     centers, mask, cl, n_valid = make_cloud(96, seed=13)
     static = build_repulsion_static(centers, cl, mask)
@@ -199,8 +199,8 @@ def test_trainer_chunk_uses_static_tables():
     import dataclasses
     import os
 
-    from burn_raymarching_tpu.config import TrainConfig
-    from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+    from burn_raymarching.config import TrainConfig
+    from burn_raymarching.train.loop import Trainer, build_dataset
 
     cfg = TrainConfig(
         batch_size=1024, stages=1, steps_per_stage=10, steps_per_call=10,

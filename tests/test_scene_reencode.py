@@ -9,7 +9,7 @@ re-encodes child radii at split time via softplus⁻¹ = ln(eˣ−1)
 import jax.numpy as jnp
 import numpy as np
 
-from burn_raymarching_tpu.models.scene import activate, raw_from_physical
+from burn_raymarching.models.scene import activate, raw_from_physical
 
 
 def test_round_trip_recovers_physical():

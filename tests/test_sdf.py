@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.ops import (
+from burn_raymarching.ops import (
     pairwise_sphere_dists,
     scene_normal,
     scene_sdf,

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.models.scene import SceneParams, activate
-from burn_raymarching_tpu.ops.march import march_xla
-from burn_raymarching_tpu.ops.pallas.shade_kernel import shade_fused
-from burn_raymarching_tpu.ops.sdf import scene_normal, scene_sdf
-from burn_raymarching_tpu.render.diff import render_diff
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.models.scene import SceneParams, activate
+from burn_raymarching.ops.march import march_xla
+from burn_raymarching.ops.pallas.shade_kernel import shade_fused
+from burn_raymarching.ops.sdf import scene_normal, scene_sdf
+from burn_raymarching.render.diff import render_diff
 
 
 @pytest.fixture(scope="module")

@@ -11,16 +11,16 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from burn_raymarching_tpu.config import TrainConfig
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.models.scene import SceneParams, pad_params, scene_forward
-from burn_raymarching_tpu.parallel.mesh import make_mesh
-from burn_raymarching_tpu.parallel.train_step import (
+from burn_raymarching.config import TrainConfig
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.models.scene import SceneParams, pad_params, scene_forward
+from burn_raymarching.parallel.mesh import make_mesh
+from burn_raymarching.parallel.train_step import (
     make_sharded_train_step,
     shard_params,
 )
-from burn_raymarching_tpu.train.loss import compute_loss
-from burn_raymarching_tpu.train.optimizer import make_optimizer
+from burn_raymarching.train.loss import compute_loss
+from burn_raymarching.train.optimizer import make_optimizer
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +53,7 @@ def test_msharded_render_matches_replicated(scene):
         return scene_forward(p, ro_l, rd_l, 32.0, mask=mask_l,
                              model_axis="model")
 
-    from burn_raymarching_tpu.parallel.train_step import param_specs
+    from burn_raymarching.parallel.train_step import param_specs
 
     sharded = jax.shard_map(
         fwd, mesh=mesh,
@@ -80,7 +80,7 @@ def test_msharded_loss_matches_replicated(scene):
         return compute_loss(p, out, tgt, jnp.float32(0.4), mask=mask_l,
                             model_axis="model")
 
-    from burn_raymarching_tpu.parallel.train_step import param_specs
+    from burn_raymarching.parallel.train_step import param_specs
 
     sharded = jax.shard_map(
         loss_fn, mesh=mesh,
@@ -147,7 +147,7 @@ def test_dp_gradients_match_replicated(scene):
         g = jax.grad(loss_of)(p, ro_l, rd_l, tgt_l)
         return jax.lax.pmean(g, "data")
 
-    from burn_raymarching_tpu.parallel.train_step import param_specs
+    from burn_raymarching.parallel.train_step import param_specs
 
     sharded = jax.shard_map(
         device_fn, mesh=mesh,
@@ -167,9 +167,9 @@ def test_dp_gradients_match_replicated(scene):
 
 def test_msharded_culled_render_matches_dense(scene):
     """Config-5 path: per-shard top-K culling + pmax/psum compositing."""
-    from burn_raymarching_tpu.parallel.train_step import param_specs
-    from burn_raymarching_tpu.render.culled import render_diff_culled
-    from burn_raymarching_tpu.render.diff import render_diff
+    from burn_raymarching.parallel.train_step import param_specs
+    from burn_raymarching.render.culled import render_diff_culled
+    from burn_raymarching.render.diff import render_diff
 
     params, ro, rd = scene
     mesh = make_mesh(data=1, model=4)
@@ -235,8 +235,8 @@ def test_sharded_culled_step_runs_finite(scene):
 def test_msharded_cluster_repulsion_matches_local(scene):
     """Sharded (implicit-cluster) repulsion == unsharded on a Morton-ordered
     buffer when every cluster fits a shard."""
-    from burn_raymarching_tpu.ops.culling import PrimitiveClusters, morton_order
-    from burn_raymarching_tpu.train.loss import cluster_repulsion
+    from burn_raymarching.ops.culling import PrimitiveClusters, morton_order
+    from burn_raymarching.train.loss import cluster_repulsion
 
     params, _, _ = scene
     order = morton_order(np.asarray(params.centers))
@@ -301,7 +301,7 @@ def test_sharded_culled_cluster_repulsion_step_runs_finite(scene):
     fg_idx = jnp.zeros((256,), jnp.int32)
     n_fg = jnp.asarray(0, jnp.int32)
 
-    from burn_raymarching_tpu.parallel.train_step import make_sharded_train_step
+    from burn_raymarching.parallel.train_step import make_sharded_train_step
 
     step = make_sharded_train_step(cfg, mesh, tx)
     p_sh = shard_params(padded, mesh, True)
@@ -321,15 +321,15 @@ def test_sharded_kernel_march_matches_xla_twin(scene):
     XLA twin: same table entries, different reduction structure only."""
     from functools import partial
 
-    from burn_raymarching_tpu.ops.culling import (
+    from burn_raymarching.ops.culling import (
         select_tile_primitives,
         tile_cones,
     )
-    from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+    from burn_raymarching.ops.pallas.culled_march_kernel import (
         culled_march_normals_pallas,
     )
-    from burn_raymarching_tpu.render.culled import culled_march_normals_xla
-    from burn_raymarching_tpu.train.step_body import (
+    from burn_raymarching.render.culled import culled_march_normals_xla
+    from burn_raymarching.train.step_body import (
         sharded_culled_kernel_march,
     )
 
@@ -384,15 +384,15 @@ def test_sharded_kernel_march_warm_start(scene):
     column slices its tile range)."""
     from functools import partial
 
-    from burn_raymarching_tpu.ops.culling import (
+    from burn_raymarching.ops.culling import (
         select_tile_primitives,
         tile_cones,
     )
-    from burn_raymarching_tpu.ops.pallas.culled_march_kernel import (
+    from burn_raymarching.ops.pallas.culled_march_kernel import (
         culled_march_normals_pallas,
     )
-    from burn_raymarching_tpu.render.culled import culled_march_normals_xla
-    from burn_raymarching_tpu.train.step_body import (
+    from burn_raymarching.render.culled import culled_march_normals_xla
+    from burn_raymarching.train.step_body import (
         sharded_culled_kernel_march,
     )
 

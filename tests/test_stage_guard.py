@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.config import TrainConfig
-from burn_raymarching_tpu.models.scene import SceneParams
-from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+from burn_raymarching.config import TrainConfig
+from burn_raymarching.models.scene import SceneParams
+from burn_raymarching.train.loop import Trainer, build_dataset
 
 
 @pytest.fixture(scope="module")

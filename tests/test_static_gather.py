@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.ops.static_gather import neighbor_hot_t, take_blocks
+from burn_raymarching.ops.static_gather import neighbor_hot_t, take_blocks
 
 
 @pytest.mark.parametrize("c,g,w,seed", [(7, 4, 3, 0), (1, 2, 1, 1),

@@ -15,10 +15,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.config import RenderConfig, TrainConfig
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.render.diff import render_diff
-from burn_raymarching_tpu.train.step_body import (
+from burn_raymarching.config import RenderConfig, TrainConfig
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.render.diff import render_diff
+from burn_raymarching.train.step_body import (
     expand_subpixel,
     subpixel_offsets,
 )
@@ -101,7 +101,7 @@ def test_supersampled_render_differs_only_in_silhouette_band():
 
 @pytest.fixture(scope="module")
 def dataset(reference_dir):
-    from burn_raymarching_tpu.train.loop import build_dataset
+    from burn_raymarching.train.loop import build_dataset
 
     cfg = TrainConfig(
         cameras_json=os.path.join(reference_dir, "data/cameras.json"),
@@ -118,7 +118,7 @@ PX = 2.0 * float(np.tan(np.radians(25.0))) / 256.0
 
 
 def _run_short(cfg, dataset):
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.train.loop import Trainer
 
     tr = Trainer(cfg, dataset, log=lambda s: None)
     padded, mask = tr.run()
@@ -157,7 +157,7 @@ def test_trainer_supersample_culled_tile_mode(dataset, tmp_path, monkeypatch,
 
 
 def test_supersample_validation(reference_dir, dataset):
-    from burn_raymarching_tpu.train.loop import Trainer
+    from burn_raymarching.train.loop import Trainer
 
     base = TrainConfig(
         cameras_json=os.path.join(reference_dir, "data/cameras.json"),

@@ -8,15 +8,15 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from burn_raymarching_tpu.tools.chromakey import chromakey_image
-from burn_raymarching_tpu.tools.colmap_to_json import (
+from burn_raymarching.tools.chromakey import chromakey_image
+from burn_raymarching.tools.colmap_to_json import (
     parse_cameras_txt,
     parse_images_txt,
     qvec2rotmat,
 )
-from burn_raymarching_tpu.tools.generate import default_cameras
-from burn_raymarching_tpu.tools.generate_perfect_cameras import perfect_orbit
-from burn_raymarching_tpu.tools.process_cameras import process_cameras
+from burn_raymarching.tools.generate import default_cameras
+from burn_raymarching.tools.generate_perfect_cameras import perfect_orbit
+from burn_raymarching.tools.process_cameras import process_cameras
 
 
 def test_default_cameras_match_reference(reference_dir):
@@ -33,7 +33,7 @@ def test_default_cameras_match_reference(reference_dir):
 
 
 def test_generate_cli_small(tmp_path, monkeypatch):
-    from burn_raymarching_tpu.tools.generate import main
+    from burn_raymarching.tools.generate import main
 
     monkeypatch.chdir(tmp_path)
     main(["--out", "data", "--size", "32"])
@@ -109,7 +109,7 @@ def test_perfect_orbit_geometry():
 
 
 def test_viewer_offline_renders(tmp_path, reference_dir, monkeypatch):
-    from burn_raymarching_tpu.tools.viewer_offline import main
+    from burn_raymarching.tools.viewer_offline import main
 
     monkeypatch.chdir(tmp_path)
     scene = os.path.join(reference_dir, "scene.json")
@@ -125,7 +125,7 @@ def test_viewer_offline_renders(tmp_path, reference_dir, monkeypatch):
 
 
 def test_knot_scene_and_ring_cameras():
-    from burn_raymarching_tpu.tools.generate import knot_scene, ring_cameras
+    from burn_raymarching.tools.generate import knot_scene, ring_cameras
 
     c, col, r = knot_scene(128)
     assert c.shape == (128, 3) and col.shape == (128, 3)
@@ -147,7 +147,7 @@ def test_knot_scene_and_ring_cameras():
 def test_cloud_init_with_point_prior():
     import jax.numpy as jnp
 
-    from burn_raymarching_tpu.models.scene import init_scene_params_cloud
+    from burn_raymarching.models.scene import init_scene_params_cloud
 
     pts = np.asarray([[0.5, 0.0, 0.0], [-0.5, 0.0, 0.0]], np.float32)
     p = init_scene_params_cloud(64, seed=1, radius=0.03, points=pts,
@@ -167,7 +167,7 @@ def test_train_cli_config_flags(tmp_path):
     the repulsion far-field knob in particular."""
     import argparse
 
-    from burn_raymarching_tpu.tools.train_cli import build_config
+    from burn_raymarching.tools.train_cli import build_config
 
     args = argparse.Namespace(
         batch_size=2048, width=None, height=None, stages=None,
@@ -197,7 +197,7 @@ def test_train_cli_config_flags(tmp_path):
 
 
 def test_colmap_points3d_parse(tmp_path):
-    from burn_raymarching_tpu.tools.colmap_to_json import parse_points3d_txt
+    from burn_raymarching.tools.colmap_to_json import parse_points3d_txt
 
     txt = ("# comment\n"
            "1 0.5 -0.25 2.0 255 0 0 0.5 1 2\n"
@@ -212,7 +212,7 @@ def test_load_cameras_resolves_relative_paths(tmp_path, monkeypatch):
     """cameras.json entries like "data/target_0.png" (crate-root-relative,
     reference train.rs:66-68) resolve against the json's location when they
     don't exist from the cwd."""
-    from burn_raymarching_tpu.data.scene_io import load_cameras
+    from burn_raymarching.data.scene_io import load_cameras
 
     data = tmp_path / "data"
     data.mkdir()
@@ -232,9 +232,9 @@ def test_load_cameras_resolves_relative_paths(tmp_path, monkeypatch):
 def test_train_cli_round3_flags():
     """Round-3 knobs reach the config: Gaussian coverage, overlap merge,
     residual split, per-stage centers lr, adaptive mask."""
-    from burn_raymarching_tpu.tools.train_cli import main
+    from burn_raymarching.tools.train_cli import main
 
-    import burn_raymarching_tpu.tools.train_cli as cli
+    import burn_raymarching.tools.train_cli as cli
 
     captured = {}
 
@@ -242,7 +242,7 @@ def test_train_cli_round3_flags():
         captured["cfg"] = cfg
         raise SystemExit(0)     # stop before any training
 
-    import burn_raymarching_tpu.train.loop as loop
+    import burn_raymarching.train.loop as loop
     orig = loop.build_dataset
     loop.build_dataset = fake_build_dataset
     try:

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from burn_raymarching_tpu.config import TrainConfig
-from burn_raymarching_tpu.train.loop import Trainer, build_dataset
+from burn_raymarching.config import TrainConfig
+from burn_raymarching.train.loop import Trainer, build_dataset
 
 
 @pytest.fixture(scope="module")
@@ -62,8 +62,8 @@ def test_two_stage_run_produces_artifacts(tmp_path, dataset, monkeypatch):
 
 def test_polish_refines_final_scene(tmp_path, dataset, monkeypatch,
                                     reference_dir):
-    from burn_raymarching_tpu.data.image_io import load_image_as_array
-    from burn_raymarching_tpu.data.scene_io import load_cameras
+    from burn_raymarching.data.image_io import load_image_as_array
+    from burn_raymarching.data.scene_io import load_cameras
 
     cams = load_cameras(os.path.join(reference_dir, "data/cameras.json"))
     tgts = [load_image_as_array(os.path.join(reference_dir, c["file"]))

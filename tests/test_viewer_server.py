@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from burn_raymarching_tpu.tools.viewer_server import _ViewerState, make_handler
+from burn_raymarching.tools.viewer_server import _ViewerState, make_handler
 
 
 @pytest.fixture(scope="module")

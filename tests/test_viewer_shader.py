@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from burn_raymarching_tpu.data.camera import create_camera_rays
-from burn_raymarching_tpu.data.scene_io import load_scene_json
-from burn_raymarching_tpu.tools.viewer_offline import _viewer_shade
+from burn_raymarching.data.camera import create_camera_rays
+from burn_raymarching.data.scene_io import load_scene_json
+from burn_raymarching.tools.viewer_offline import _viewer_shade
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "viewer_ref_scene_128.png")
