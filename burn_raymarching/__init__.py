@@ -1,4 +1,4 @@
-"""burn_raymarching — a TPU-native differentiable SDF raymarching framework.
+"""burn_raymarching — a differentiable SDF raymarching framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 kokutoupan/burn_raymarching reference (Rust/Burn/WGPU): inverse rendering of
@@ -6,8 +6,9 @@ sphere-primitive scenes from multi-view images via differentiable sphere
 tracing with softmax depth compositing, learnable Lambertian lighting, Adam
 optimization, and 3DGS-style adaptive density control between stages.
 
-Layer map (TPU-first, not a translation):
-  ops/       — SDF math, soft-min, march, shading (pure JAX + Pallas kernels)
+Layer map:
+  ops/       — SDF math, soft-min, march, shading (pure JAX + Pallas kernels,
+               chosen per platform in ops/kernels.py)
   models/    — SceneParams pytree + activations + forward
   render/    — differentiable + ground-truth renderers
   data/      — cameras, ray dataset + importance sampling, image/scene I/O

@@ -74,8 +74,7 @@ class RayDataset:
         self.rays_d = jnp.asarray(rays_d)
         self.targets = jnp.asarray(targets)
         # Packed [P, 9] copy (ro | rd | target): batch sampling is one row
-        # gather instead of three — TPU gathers are per-row latency-bound,
-        # so this cuts sampling time ~3x.
+        # gather instead of three.
         self.packed = jnp.concatenate(
             [self.rays_o, self.rays_d, self.targets], axis=1)
         self.num_total_pixels = int(self.rays_o.shape[0])

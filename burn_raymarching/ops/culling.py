@@ -1,7 +1,7 @@
 """Coherent-tile primitive culling for large scenes.
 
 Dense soft-min is O(N·M) — fine for the reference's hundreds of primitives,
-ruinous at 5k-50k (BASELINE configs 4-5). The TPU-native fix: rays in a tile
+ruinous at 5k-50k (BASELINE configs 4-5). The fix: rays in a tile
 share a bounding cone; any primitive farther than ``cutoff = margin/k`` from
 the cone (beyond its radius) contributes less than exp(-margin) ≈ 2.7e-10
 relative to the soft-min/softmax sums — *below fp32 resolution*, so culling
@@ -249,8 +249,8 @@ def select_tile_primitives_hier(
     """
     # Cluster-sorted copies of the param tables, built ONCE per step
     # (one [M]-sized gather). Per-tile candidate fetches below are then
-    # whole-row gathers of [G·3]-contiguous cluster blocks — far cheaper on
-    # TPU than B·Cb·G random scalar gathers from the unsorted tables.
+    # whole-row gathers of [G·3]-contiguous cluster blocks instead of
+    # B·Cb·G random scalar gathers from the unsorted tables.
     member_valid = clusters.member_valid
     if mask is not None:
         member_valid = member_valid & jnp.take(

@@ -5,8 +5,8 @@ reference detaches t after every step (src/renderer_diff.rs:22-26), so no
 gradient flows through the 40 iterations — gradients re-enter via one extra
 SDF evaluation at the converged point. That lets us run the march under
 ``stop_gradient`` as a ``lax.fori_loop`` (compile-friendly, no unrolled graph)
-and, on TPU, swap in a fused Pallas kernel that keeps the whole 40-iteration
-loop in VMEM (see ops/pallas/march_shade_kernel.py).
+and, on the GPU, swap in a fused Pallas kernel that keeps the whole
+40-iteration loop on chip (see ops/pallas/march_kernel.py).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 
-from burn_raymarching.ops.sdf import scene_sdf
+from burn_raymarching.ops.sdf import scene_normal, scene_sdf
 
 # Signature shared by XLA and Pallas march implementations.
 MarchFn = Callable[..., jax.Array]
@@ -49,7 +49,8 @@ def march_xla(
     t <- t + sdf(ro + rd*t), each detached. ``t_init`` warm-starts the march
     (per-pixel t cache across training steps) — t is detached so any
     converged root of the *current* field is equivalent; callers pair a
-    nonzero t_init with a reduced num_steps.
+    nonzero t_init with a reduced num_steps. Distances in the direct form
+    (ops/sdf.direct_sphere_dists), as in the GPU kernel.
     """
     ray_org = jax.lax.stop_gradient(ray_org)
     ray_dir = jax.lax.stop_gradient(ray_dir)
@@ -60,7 +61,7 @@ def march_xla(
     def body(_, t):
         p = ray_org + ray_dir * t
         t = t + scene_sdf(p, centers, radii, smooth_k, mask=mask,
-                          model_axis=model_axis)
+                          model_axis=model_axis, direct=True)
         return jnp.minimum(t, T_MAX)
 
     if t_init is None:
@@ -69,6 +70,42 @@ def march_xla(
         t0 = jax.lax.stop_gradient(t_init)
     t = jax.lax.fori_loop(0, num_steps, body, t0)
     return jax.lax.stop_gradient(t)
+
+
+def march_normals_xla(
+    ray_org: jax.Array,
+    ray_dir: jax.Array,
+    centers: jax.Array,
+    radii: jax.Array,
+    smooth_k: jax.Array | float,
+    mask: Optional[jax.Array] = None,
+    num_steps: int = 40,
+    normal_eps: float = 1e-4,
+    t_init: Optional[jax.Array] = None,
+    model_axis: Optional[str] = None,
+) -> tuple[jax.Array, jax.Array]:
+    """Detached march + normals → (t [N, 1], normal [N, 3]).
+
+    The plain twin of ops/pallas/march_kernel.march_normals_triton, and the
+    dense counterpart of render/culled.culled_march_normals_xla: the march,
+    one detached reattach evaluation giving the point the renderer shades at
+    (renderer_diff.rs:28-38), and the 6-tap normals there with detached
+    parameters (renderer_diff.rs:41-46), all in the direct form. No output
+    carries a gradient.
+    """
+    centers = jax.lax.stop_gradient(centers)
+    radii = jax.lax.stop_gradient(radii)
+    smooth_k = jax.lax.stop_gradient(smooth_k)
+    t = march_xla(ray_org, ray_dir, centers, radii, smooth_k, mask=mask,
+                  num_steps=num_steps, model_axis=model_axis, t_init=t_init)
+    ray_org = jax.lax.stop_gradient(ray_org)
+    ray_dir = jax.lax.stop_gradient(ray_dir)
+    dist_last = scene_sdf(ray_org + ray_dir * t, centers, radii, smooth_k,
+                          mask=mask, model_axis=model_axis, direct=True)
+    p_final = ray_org + ray_dir * (t + dist_last)
+    normal = scene_normal(p_final, centers, radii, smooth_k, mask=mask,
+                          eps=normal_eps, model_axis=model_axis, direct=True)
+    return t, jax.lax.stop_gradient(normal)
 
 
 def march_gt(

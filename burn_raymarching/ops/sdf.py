@@ -1,11 +1,13 @@
 """SDF primitives and the batched scene field.
 
-Semantics match the reference exactly (including epsilons), but the
-implementation is TPU-first: everything is batched [N, M], the point-to-sphere
-distances go through the expanded form ||p||^2 + ||c||^2 - 2 p.c so the [N,M]
-matrix is a K=3 matmul (MXU-friendly, fuses with the elementwise tail under
-XLA), and padded primitive slots are handled with a validity mask so shapes
-stay static while M changes across density-control stages.
+Semantics match the reference exactly (including epsilons), batched for an
+accelerator: everything is [N, M], and padded primitive slots are handled
+with a validity mask so shapes stay static while M changes across
+density-control stages. The gradient-carrying evaluations take the
+point-to-sphere distances in the reference's expanded form
+||p||^2 + ||c||^2 - 2 p.c (a K=3 contraction); the detached march and
+normals take the same function in the direct form sqrt(|p - c|^2)
+(``direct=True``), which the GPU march kernel computes too.
 
 Reference semantics: src/model/sdf.rs (sphere SDF, polynomial smooth-min,
 LogSumExp soft-min) and src/model/scene.rs:60-128 (scene_sdf_value,
@@ -95,11 +97,32 @@ def pairwise_sphere_dists(
         centers,
         dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,  # full-f32 MXU passes: the K=3
-        # contraction is tiny, but default (bf16-class) precision visibly
-        # corrupts the distance field (~1e-3), breaking march convergence.
+        precision=jax.lax.Precision.HIGHEST,  # full f32: the K=3
+        # contraction is tiny, but default precision (TF32 on the GPU)
+        # visibly corrupts the distance field (~1e-3), breaking march
+        # convergence.
     )                                                        # [N, M]
     dists_sq = p_sq + c_sq - 2.0 * p_dot_c
+    dists = jnp.sqrt(jnp.maximum(dists_sq, 1e-6))
+    return dists - jnp.reshape(radii, (1, -1))
+
+
+def direct_sphere_dists(
+    p: jax.Array, centers: jax.Array, radii: jax.Array
+) -> jax.Array:
+    """[N, M] surface distances in the direct form sqrt(|p - c|^2).
+
+    The same function as pairwise_sphere_dists (same 1e-6 clamp) without the
+    expanded form's cancellation: near a small sphere ||p||^2 + ||c||^2 -
+    2 p.c keeps only ~ulp(||p||^2) of precision, which the +-1e-4 normal
+    taps turn into ~1e-3 of noise. Elementwise float32, no dot_general.
+    The detached march and normals use it, on every platform, in the same
+    operation order as ops/pallas/march_kernel.py.
+    """
+    ex = p[:, None, 0] - centers[None, :, 0]
+    ey = p[:, None, 1] - centers[None, :, 1]
+    ez = p[:, None, 2] - centers[None, :, 2]
+    dists_sq = ex * ex + ey * ey + ez * ez
     dists = jnp.sqrt(jnp.maximum(dists_sq, 1e-6))
     return dists - jnp.reshape(radii, (1, -1))
 
@@ -111,13 +134,16 @@ def scene_sdf(
     smooth_k: jax.Array | float,
     mask: Optional[jax.Array] = None,
     model_axis: Optional[str] = None,
+    direct: bool = False,
 ) -> jax.Array:
     """Soft-min SDF of the whole scene at points ``p`` [N,3] → [N,1].
 
     Reference: src/model/scene.rs:60-79. ``centers``/``radii``/``mask`` may be
     the local shard of an M-sharded primitive table (see soft_min).
+    ``direct`` takes the distances in the direct form (direct_sphere_dists).
     """
-    dists = pairwise_sphere_dists(p, centers, radii)
+    dists = (direct_sphere_dists if direct else pairwise_sphere_dists)(
+        p, centers, radii)
     return soft_min(dists, smooth_k, mask=mask, model_axis=model_axis)
 
 
@@ -144,19 +170,20 @@ def scene_normal(
     mask: Optional[jax.Array] = None,
     eps: float = 1e-4,
     model_axis: Optional[str] = None,
+    direct: bool = False,
 ) -> jax.Array:
     """Central-difference surface normals, batched as one [6N, M] SDF eval.
 
     Reference: src/model/scene.rs:81-128 — offsets of +-eps per axis, one
     batched scene_sdf_value call, finite differences, normalize by
     sqrt(sum(n^2) + 1e-6).
-    p: [N,3] → [N,3] unit-ish normals.
+    p: [N,3] → [N,3] unit-ish normals. ``direct`` as in scene_sdf.
     """
     n = p.shape[0]
     offsets = _NORMAL_TAPS.astype(p.dtype) * eps              # [6, 3]
     p_taps = (p[:, None, :] + offsets[None, :, :]).reshape(n * 6, 3)
     d = scene_sdf(p_taps, centers, radii, smooth_k, mask=mask,
-                  model_axis=model_axis).reshape(n, 6)
+                  model_axis=model_axis, direct=direct).reshape(n, 6)
     normal = jnp.stack(
         [d[:, 0] - d[:, 1], d[:, 2] - d[:, 3], d[:, 4] - d[:, 5]], axis=1
     )

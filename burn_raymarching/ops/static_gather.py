@@ -1,10 +1,10 @@
-"""Scatter-free custom VJPs for chunk-frozen gathers (round 5).
+"""Scatter-free custom VJPs for chunk-frozen gathers.
 
 The two-level repulsion's differentiable prep gathers member positions
 into cluster blocks and then neighbor-cluster blocks
 (``train/loss.cluster_repulsion``; approximates reference
 src/training.rs:73-83 at scale). Reverse AD of ``jnp.take`` emits an XLA
-scatter-add, which TPU lowers conservatively (possible duplicate
+scatter-add, which a backend may lower conservatively (possible duplicate
 indices → serialized updates). When the index tables are frozen for a
 scan chunk (``train/loss.RepulsionStatic``) we can do better than the
 generic scatter:
@@ -13,22 +13,18 @@ generic scatter:
   duplicated indices (every cluster is a neighbor of ~W others), but its
   transpose is a fixed linear map — precompute the transposed one-hot
   ``hot_t[j, c·W+w] = [nb[c, w] == j]`` once per chunk and the backward
-  becomes one MXU matmul ``hot_t @ ḡ`` ([C, C·W]×[C·W, G·3]; ~2 GFLOP
-  and ~25 MB of HBM traffic at M=51,200 — vs a 409,600-row scatter-add).
+  becomes one matmul ``hot_t @ ḡ`` ([C, C·W]×[C·W, G·3]; ~2 GFLOP and
+  ~25 MB of device-memory traffic at M=51,200 — vs a 409,600-row
+  scatter-add).
 
-``precision=HIGHEST`` keeps the accumulation f32 (default TPU precision
-would round the cotangents through bf16; the repo invariant is HIGHEST
-on every dot).
+``precision=HIGHEST`` keeps the accumulation f32 (default precision would
+round the cotangents through a reduced format; the repo invariant is
+HIGHEST on every dot).
 
-**Measured NEGATIVE on this workload (round 5), kept as a documented
-utility:** wiring ``take_blocks`` into the static repulsion path moved
-the M=51,200 warm step 6.85 → 7.32 ms (bench_guards large-scene run) —
-XLA's lowering of the [C, W]-block scatter-add is already better than
-streaming the 20 MB hot table through the MXU at this size, consistent
-with the round-2 finding that the prep pieces are individually tiny
-(docs/PARITY.md). The wrapper stays correct and tested
-(tests/test_static_gather.py) for workloads with larger W·C where the
-scatter, not the table read, dominates.
+Not wired into the training step: on the hardware it was first measured
+on, XLA's [C, W]-block scatter-add beat streaming the hot table at this
+size. Whether that holds on the H100 is open (ROADMAP); the wrapper stays
+correct and tested (tests/test_static_gather.py).
 """
 
 from __future__ import annotations

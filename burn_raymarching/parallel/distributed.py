@@ -1,15 +1,16 @@
-"""Multi-host runtime: process init, host-0 I/O, distributed training loop.
+"""Multi-process runtime: process init, host-0 I/O, distributed training loop.
 
 The reference is strictly single-device (SURVEY §2 — no collectives of any
-kind); this is the TPU-native scaling layer mandated by the rebuild's
-north-star (≥85% rays/s scaling 1 chip → N≥2 hosts).
+kind); this is the scaling layer.
 
 Topology model:
-  * every host runs the same program; ``init_distributed()`` wires
-    jax.distributed (GCE TPU metadata or explicit coordinator);
-  * the global mesh is (data, model) over ALL devices; gradients all-reduce
-    over ICI within a slice and DCN across hosts via the same psum/pmean —
-    XLA routes the collective;
+  * every process runs the same program; ``init_distributed()`` wires
+    jax.distributed from an explicit coordinator address, process count
+    and process id (nothing on a GPU host discovers them);
+  * the global mesh is (data, model) over ALL devices; the cards of one
+    host are joined all to all by NVLink, so the mesh follows the
+    algorithm alone and gradients all-reduce through the same psum/pmean
+    (XLA hands the collectives to NCCL);
   * per-primitive parameter gradients are tiny (M×7 floats), so the
     all-reduce is latency-bound — DP scaling efficiency is limited only by
     per-step launch overhead, which the scan-chunked step amortizes to
@@ -36,7 +37,7 @@ device_count): XLA:CPU's collective rendezvous nondeterministically crashes
 a few thousand subgroup all-reduces — typically 30-150 training steps of
 this pipeline, dense or culled, synced or not (reproduced on jax 0.8.x).
 Keep CPU-simulation runs to smoke length (tests and dryrun_multichip do);
-real TPU meshes run collectives over ICI and do not use this code path.
+GPU meshes run their collectives through NCCL and do not use this path.
 """
 
 from __future__ import annotations
@@ -63,9 +64,9 @@ from burn_raymarching.utils.padding import bucket_size
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed. On Cloud TPU pods the arguments are
-    auto-discovered from the metadata server; pass them explicitly
-    elsewhere. Safe to call when already initialized."""
+    """Initialize jax.distributed. Pass the coordinator address
+    (``host:port``), process count and process id explicitly. Safe to call
+    when already initialized."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator,
@@ -172,27 +173,23 @@ class DistributedTrainer(Trainer):
     # --- step construction -------------------------------------------- #
 
     def _chunk_target(self) -> int:
-        """Sharded auto steps_per_call: each chunk boundary costs ~31 ms
-        (shard_map materializes gradients at the program edge) and the
-        measured overhead vs the single-chip driver crosses the <10% bar
-        only around 350 steps/call (+13.0% at 100, +4.9% at 350 —
-        runs/r4_hw/dist_overhead_spc.json). Auto mode therefore targets
-        350 so an out-of-the-box --distributed run pays <10%; explicit
-        cfg.steps_per_call still wins (config.steps_per_call)."""
+        """Sharded auto steps_per_call: chunk boundaries cost more here
+        (shard_map materializes gradients at the program edge), so auto
+        mode targets longer chunks; explicit cfg.steps_per_call still wins
+        (config.steps_per_call)."""
         return 350
 
     def _build_step(self, render_overrides=None):
         return make_sharded_chunk_runner(
             self._stage_cfg(render_overrides), self.mesh, self.tx,
             self._chunk,
-            march_fn=self.march_fn,
             march_normal_fn=self.march_normal_fn,
             culled_march_fn=self.culled_march_normal_fn,
             warm=self.warm)
 
     def _warm_gate(self) -> bool:
-        # Dense warm-start needs the single-device fused kernel; the culled
-        # path warms everywhere (XLA twin under model sharding / CPU).
+        # The sharded prefill (below) is the culled march; the dense warm
+        # path needs a single-device table.
         return bool(self.cfg.warm_start and self.cfg.use_culling)
 
     # --- layout hooks --------------------------------------------------- #
@@ -272,8 +269,8 @@ class DistributedTrainer(Trainer):
         """Cold march of every pixel, each device over its own shard.
 
         One shard_map call: flat per-shard top-K selection + the culled
-        march (fused kernel when a single device owns its tables, XLA twin
-        with pmax/psum under model sharding), lax.map-chunked so the
+        march (the platform's march when a single device owns its tables,
+        the XLA twin with pmax/psum under model sharding), lax.map-chunked so the
         per-device working set stays at one batch of tiles."""
         from functools import partial
 
@@ -288,9 +285,7 @@ class DistributedTrainer(Trainer):
         cfg = self.cfg
         ds = self.dataset
         model_axis = "model" if self.model > 1 else None
-        kern = (self.culled_march_normal_fn
-                if model_axis is None
-                and self.culled_march_normal_fn is not None
+        kern = (self.culled_march_normal_fn if model_axis is None
                 else partial(culled_march_normals_xla, model_axis=model_axis))
         tile = cfg.cull_tile
         k_val = jnp.float32(smooth_k)
@@ -312,8 +307,8 @@ class DistributedTrainer(Trainer):
             def one(args):
                 # Selection AND march per map slice: selecting all local
                 # tiles up front materializes a [tiles*K, 3] gather that
-                # blows HBM at real shapes (measured 15 GB padded on the
-                # c4 recipe with data=1 — 15,360 tiles x K=2048).
+                # blows device memory at real shapes (15,360 tiles x K=2048
+                # on the c4 recipe with data=1).
                 ro3, rd3 = args                       # [group, tile, 3]
                 cones = tile_cones(ro3.reshape(-1, 3), rd3.reshape(-1, 3),
                                    tile)

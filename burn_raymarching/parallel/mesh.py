@@ -3,11 +3,14 @@
 The scaling axes for this workload (SURVEY §2, §5):
   * "data"  — rays/pixels: embarrassingly parallel forward, gradients psum'd.
     This is the primary axis; collectives are tiny (per-primitive param grads
-    are M×7 floats) and latency-bound over ICI.
+    are M×7 floats) and latency-bound.
   * "model" — primitives (the M axis): only needed for very large M (~50k),
     where each device holds a shard of the primitive table and the soft-min /
     softmax compositor is combined across devices with a two-pass
-    max-then-sum logsumexp (see parallel/sharded_render.py).
+    max-then-sum logsumexp (ops/sdf.py, render/culled.py).
+
+The cards of one host are joined all to all (NVLink), so the device order
+carries no topology: the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

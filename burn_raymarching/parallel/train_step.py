@@ -1,13 +1,14 @@
 """Sharded training step: rays data-parallel × primitives model-parallel.
 
-TPU-native scaling design (SURVEY §2/§5; no equivalent exists in the
-single-device reference):
+Scaling design (SURVEY §2/§5; no equivalent exists in the single-device
+reference):
 
   * "data" axis — the batch of rays is split across devices. Each device
     samples its own sub-batch (PRNG folded with its axis index), marches and
     shades it against its primitive (shard), and computes the local loss.
     Gradients are combined with ``pmean`` over the axis — per-primitive grads
-    are M×7 floats, so this all-reduce is latency-bound and rides ICI.
+    are M×7 floats, so this all-reduce is latency-bound (NVLink between the
+    cards of one host, all to all).
   * "model" axis — the primitive table (M) is sharded. Soft-min / softmax
     compositing combine shards with the two-pass pmax+psum logsumexp inside
     the forward (ops/sdf.py, render/diff.py); reverse-mode AD threads the
@@ -21,7 +22,7 @@ already-sharded leaves, so XLA keeps it local with no extra collectives.
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Optional
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +47,6 @@ def make_sharded_train_step(
     cfg: TrainConfig,
     mesh: Mesh,
     tx,
-    march_fn: Optional[Callable] = None,
 ) -> Callable:
     """Build a jitted sharded step:
     (params, opt_state, key, mask, dataset arrays, anneal scalars, lr)
@@ -55,11 +55,6 @@ def make_sharded_train_step(
     ``params``/``mask`` must be laid out with primitive rows divisible by the
     model-axis size (bucket padding guarantees this).
     """
-    if march_fn is None:
-        from burn_raymarching.ops.march import march_xla
-
-        march_fn = march_xla
-
     n_data = mesh.shape["data"]
     n_model = mesh.shape["model"]
     model_sharded = n_model > 1
@@ -121,7 +116,7 @@ def make_sharded_train_step(
                     model_axis=model_axis)
             else:
                 out = scene_forward(p, ro, rd, smooth_k, mask=mask,
-                                    march_fn=march_fn, model_axis=model_axis)
+                                    model_axis=model_axis)
             return compute_loss(p, out, tgt, progress, mask=mask,
                                 cfg=cfg.loss, model_axis=model_axis,
                                 repulsion_clusters=rep_clusters)
@@ -204,9 +199,8 @@ def make_sharded_chunk_runner(
     tx,
     chunk: int,
     *,
-    march_fn=None,
-    march_normal_fn=None,
-    culled_march_fn=None,
+    march_normal_fn,
+    culled_march_fn,
     warm: bool = False,
 ):
     """Scan-chunked sharded step with the SAME signature as the single-chip
@@ -215,15 +209,12 @@ def make_sharded_chunk_runner(
 
     This is the driver-parity twin of train/loop.Trainer._build_step: the
     identical per-step body (train/step_body.make_device_step — warm-start
-    cache, tile culling, fused kernels where a single device owns its
-    tables, in-graph anneals) runs under shard_map over the (data, model)
-    mesh, and the ENTIRE scan chunk — including the Adam update — lives
-    inside one shard_map region. Round 3 ran the optimizer outside with a
-    shard_map boundary per scan step; that boundary materialized the grads
-    tree every step instead of fusing it into Adam, costing a fixed
-    ~3 ms/step (+36% wall on config-1-sized steps, runs/r3_hw:dist_parity).
-    With the scan inside, the program crosses the boundary once per CHUNK
-    and grads stay fused. The update is elementwise on already-sharded
+    cache, tile culling, march kernels, in-graph anneals) runs under
+    shard_map over the (data, model) mesh, and the ENTIRE scan chunk —
+    including the Adam update — lives inside one shard_map region. A
+    shard_map boundary per scan step would materialize the grads tree every
+    step instead of fusing it into Adam; with the scan inside, the program
+    crosses the boundary once per CHUNK and grads stay fused. The update is elementwise on already-sharded
     leaves; grads are pmean'd over the data axis first, so every data
     replica computes the identical update (opt_state stays consistent).
     Expected layouts:
@@ -236,10 +227,6 @@ def make_sharded_chunk_runner(
       cl_idx/cl_valid   — GLOBAL row ids, P("model", None): whole clusters
                           per shard (bucket quantum = model * G)
     """
-    if march_fn is None:
-        from burn_raymarching.ops.march import march_xla
-
-        march_fn = march_xla
     from burn_raymarching.train.step_body import (
         lr_scale_tree,
         make_device_step,
@@ -254,12 +241,8 @@ def make_sharded_chunk_runner(
         raise ValueError("batch_size must divide the data axis")
 
     device_step = make_device_step(
-        cfg, march_fn=march_fn, march_normal_fn=march_normal_fn,
+        cfg, march_normal_fn=march_normal_fn,
         culled_march_fn=culled_march_fn,
-        # The fused repulsion kernel assumes it owns the whole cluster
-        # table; the sharded loss uses the XLA cluster_repulsion (exact
-        # same decomposition, psum'd).
-        repulsion_fn=None,
         batch=batch_local, warm=warm,
         data_axis="data", model_axis=model_axis, model_size=n_model,
         # A 1-wide data axis samples exactly like the single-chip driver

@@ -42,14 +42,29 @@ def _tile_dists(p, centers_t, radii_t, c_sq_t):
     return jnp.sqrt(jnp.maximum(d_sq, 1e-6)) - radii_t[:, None, :]
 
 
-def _tile_soft_min(p, centers_t, radii_t, c_sq_t, k, model_axis=None):
+def _tile_dists_direct(p, centers_t, radii_t, c_sq_t):
+    """[B, T, K] surface distances in the direct form sqrt(|p - c|^2)
+    (ops/sdf.direct_sphere_dists); invalid slots sit at 1e15, as in the
+    expanded form."""
+    ex = p[:, :, None, 0] - centers_t[:, None, :, 0]
+    ey = p[:, :, None, 1] - centers_t[:, None, :, 1]
+    ez = p[:, :, None, 2] - centers_t[:, None, :, 2]
+    d = jnp.sqrt(jnp.maximum(ex * ex + ey * ey + ez * ez, 1e-6))
+    d = jnp.where(c_sq_t[:, None, :] < 0.5e30, d, 1e15)
+    return d - radii_t[:, None, :]
+
+
+def _tile_soft_min(p, centers_t, radii_t, c_sq_t, k, model_axis=None,
+                   direct=False):
     """[B, T, 1] LogSumExp soft-min (sdf.rs:30-44); invalid slots carry
-    c_sq 1e30 → distances ~1e15 → exact zero weight.
+    c_sq 1e30 → distances ~1e15 → exact zero weight. ``direct`` takes the
+    distances in the direct form (the detached march and normals).
 
     With ``model_axis``, the tables are per-shard top-K selections of an
     M-sharded primitive table: global max via pmax, psum'd exp sum — the
     same two-pass sharded logsumexp as ops/sdf.scene_sdf."""
-    d = _tile_dists(p, centers_t, radii_t, c_sq_t)
+    d = (_tile_dists_direct if direct else _tile_dists)(
+        p, centers_t, radii_t, c_sq_t)
     val = d * (-k)
     mx = jax.lax.stop_gradient(jnp.max(val, axis=2, keepdims=True))
     if model_axis is not None:
@@ -62,10 +77,11 @@ def _tile_soft_min(p, centers_t, radii_t, c_sq_t, k, model_axis=None):
 
 def _tile_normals(p, centers_t, radii_t, c_sq_t, k, eps=1e-4,
                   model_axis=None):
-    """6-tap central differences per tile (scene.rs:81-128)."""
+    """6-tap central differences per tile (scene.rs:81-128), detached, in
+    the direct form."""
     def sdf(q):
         return _tile_soft_min(q, centers_t, radii_t, c_sq_t, k,
-                              model_axis=model_axis)[..., 0]
+                              model_axis=model_axis, direct=True)[..., 0]
 
     taps = []
     for axis in range(3):
@@ -88,22 +104,24 @@ def culled_march_normals_xla(
     t_init: Optional[jax.Array] = None,
     model_axis: Optional[str] = None,
 ) -> tuple[jax.Array, jax.Array]:
-    """XLA twin of ops/pallas/culled_march_kernel.culled_march_normals_pallas:
+    """XLA twin of ops/pallas/march_kernel.culled_march_normals_triton:
     detached march + 6-tap normals over per-tile top-K tables → (t [B,T,1],
     normal [B,T,3]).
 
-    Exists for the paths the fused kernel cannot serve: M-sharded tables
-    (the march needs the GLOBAL field every iteration — pmax/psum soft-min
-    per step, a collective the kernel cannot issue) and non-TPU backends
-    (virtual CPU meshes in tests / dryrun_multichip). Same truncated-graph
-    semantics (reference renderer_diff.rs:22-26, scene.rs:81-128); inputs
-    are assumed detached by the caller.
+    The CPU's march (ops/kernels.py), the reference the kernel is tested
+    against, and the path for M-sharded tables whose tile batch does not
+    split over the model axis (the march then needs the GLOBAL field every
+    iteration — a pmax/psum soft-min per step, a collective the kernel
+    cannot issue). Same truncated-graph semantics (reference
+    renderer_diff.rs:22-26, scene.rs:81-128), distances in the direct form
+    as in the kernel; inputs are assumed detached by the caller.
     """
     ks = jax.lax.stop_gradient(smooth_k)
 
     def body(_, t):
         p = ro + rd * t
-        t = t + _tile_soft_min(p, cs, rs, qs, ks, model_axis=model_axis)
+        t = t + _tile_soft_min(p, cs, rs, qs, ks, model_axis=model_axis,
+                               direct=True)
         return jnp.minimum(t, T_MAX)
 
     t0 = (jnp.zeros(ro.shape[:2] + (1,), ro.dtype) if t_init is None
@@ -112,7 +130,8 @@ def culled_march_normals_xla(
     # Normal point: one reattachment-style extra evaluation, all detached
     # (renderer_diff.rs:28-46) — the final p the renderer shades at.
     p_final = ro + rd * (t + _tile_soft_min(ro + rd * t, cs, rs, qs, ks,
-                                            model_axis=model_axis))
+                                            model_axis=model_axis,
+                                            direct=True))
     normal = _tile_normals(jax.lax.stop_gradient(p_final), cs, rs, qs, ks,
                            eps=normal_eps, model_axis=model_axis)
     return t, jax.lax.stop_gradient(normal)
@@ -156,12 +175,12 @@ def render_diff_culled(
     from its shard and the soft-min / softmax reductions combine shards with
     pmax/psum — culling composes with model parallelism per shard.
 
-    ``march_normal_fn`` (TPU: ops/pallas/culled_march_kernel.
-    culled_march_normals_pallas) replaces the XLA march + normal taps with
-    one fused VMEM kernel — all 47 detached field evaluations on-chip
-    instead of 40x [B, T, K] HBM round-trips. Single-device tables only
-    (the M-sharded march needs per-step pmax/psum collectives; that path
-    stays in XLA).
+    ``march_normal_fn`` (ops/kernels.select_kernels' culled march)
+    replaces the in-renderer XLA march + normal taps — on the GPU one fused
+    kernel runs all 47 detached field evaluations without [B, T, K]
+    round-trips through device memory. Single-device tables only (the
+    M-sharded march needs per-step pmax/psum collectives; that path stays
+    in XLA).
 
     ``precomputed`` = (idx [B,K], valid [B,K], t [B,T,1], normal [B,T,3])
     skips selection AND the detached march/normals entirely — the training
@@ -205,7 +224,7 @@ def render_diff_culled(
     if precomputed is not None:
         pass                                  # t, normal arrived detached
     elif march_normal_fn is not None and model_axis is None:
-        # Fused VMEM kernel: march + reattach point + normal taps on-chip.
+        # Fused march + reattach point + normal taps.
         t0 = (jnp.zeros((b, tile, 1), ro.dtype) if t_init is None
               else jax.lax.stop_gradient(t_init).reshape(b, tile, 1))
         t, normal = march_normal_fn(
@@ -216,7 +235,8 @@ def render_diff_culled(
     else:
         def body(_, t):
             p = ro + rd * t
-            t = t + _tile_soft_min(p, cs, rs, qs, ks, model_axis=model_axis)
+            t = t + _tile_soft_min(p, cs, rs, qs, ks, model_axis=model_axis,
+                                   direct=True)
             return jnp.minimum(t, T_MAX)
 
         t0 = (jnp.zeros((b, tile, 1), ro.dtype) if t_init is None

@@ -12,9 +12,10 @@ Gradient topology matches the reference exactly (src/renderer_diff.rs):
   * softmax(-10*d) color compositing over primitives (renderer_diff.rs:65-84);
   * sigmoid(-15*sdf) coverage mask (renderer_diff.rs:86-90).
 
-TPU-first notes: the compositor's weighted color sum is a real [N,M]x[M,3]
-matmul; padded primitive slots get -1e30 logits so softmax gives them exactly
-zero weight; the march can be swapped for the fused Pallas kernel.
+Notes: the compositor's weighted color sum is a real [N,M]x[M,3] matmul;
+padded primitive slots get -1e30 logits so softmax gives them exactly zero
+weight; the march can be swapped for the fused march kernel
+(``march_normal_fn``, ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def adaptive_coverage(dist_scene, t_final, mask_sharpness,
     Default (mask_pixel_mult == 0): the reference's fixed
     sigmoid(-mask_sharpness * d) (renderer_diff.rs:86-90).
 
-    With mask_pixel_mult > 0 (TPU-native extension, RenderConfig): the
+    With mask_pixel_mult > 0 (extension, RenderConfig): the
     sigmoid's transition width becomes
         w(t) = max(1 / mask_sharpness, mask_pixel_mult * pixel_angle * t)
     i.e. never narrower than ~mask_pixel_mult PIXELS at the hit depth, so
@@ -52,7 +53,7 @@ def adaptive_coverage(dist_scene, t_final, mask_sharpness,
     are safe: their scene distance grows ~linearly with t, so d/w tends to
     the constant 1/(mask_pixel_mult*pixel_angle) >> 1 and coverage -> 0.
 
-    ``coverage_mode="gaussian"`` (TPU-native extension, RenderConfig)
+    ``coverage_mode="gaussian"`` (extension, RenderConfig)
     replaces the sigmoid FAMILY with the GT renderer's Gaussian
     exp(-mask_sharpness * d^2) (reference renderer.rs:77) — the reference
     trains a sigmoid silhouette against Gaussian-masked targets
@@ -142,6 +143,7 @@ def render_diff(
             mask=mask,
             eps=normal_eps,
             model_axis=model_axis,
+            direct=True,
         )
 
     # --- Lambertian shading (renderer_diff.rs:48-62) ---

@@ -65,7 +65,7 @@ def render_gt(
     dist_scene = scene_sdf(p_final, centers, radii, smooth_k, mask=mask)
     coverage = jnp.exp(dist_scene * dist_scene * (-mask_sharpness))
     if hard_mask:
-        # Binary silhouette (TPU-repo extension): thresholds the Gaussian
+        # Binary silhouette (extension): thresholds the Gaussian
         # at 1/2, i.e. covered iff |d| < sqrt(ln 2 / s). Real-photo
         # captures (chromakeyed frames, chromakey.rs) have exactly this
         # hard-edge statistic — the intended domain of the

@@ -3,7 +3,8 @@
 Equivalent of src/bin/chromakey.rs: resize to 256x256 (Lanczos), keep bright
 reddish pixels inside the center crop (brightness^2 > 150^2, r > b + 20,
 50 < x,y < 206), black out everything else. Vectorized NumPy instead of the
-reference's per-pixel loop.
+reference's per-pixel loop. Camera frames are JPEGs, so this capture tool
+(alone in the package) needs Pillow: ``pip install .[capture]``.
 
 Usage: python -m burn_raymarching.tools.chromakey
            [--in data/tomato/images] [--out data/tomato/images_nobg]
@@ -16,17 +17,18 @@ import argparse
 import os
 
 import numpy as np
-from PIL import Image
 
 
 def chromakey_image(
-    img: Image.Image,
+    img: "PIL.Image.Image",
     size: int = 256,
     min_brightness: float = 150.0,
     red_margin: float = 20.0,
     border: int = 50,
 ) -> np.ndarray:
     """Returns a [size, size, 3] uint8 array with background blacked out."""
+    from PIL import Image
+
     resized = img.convert("RGB").resize((size, size), Image.LANCZOS)
     a = np.asarray(resized).astype(np.float32)
     brightness = (a * a).sum(axis=2)
@@ -51,6 +53,7 @@ def main(argv=None):
     parser.add_argument("--min-brightness", type=float, default=150.0)
     parser.add_argument("--red-margin", type=float, default=20.0)
     args = parser.parse_args(argv)
+    from PIL import Image
 
     os.makedirs(args.output_dir, exist_ok=True)
     n = 0

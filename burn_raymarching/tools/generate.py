@@ -118,6 +118,12 @@ def main(argv=None):
                              "of chromakeyed real captures")
     args = parser.parse_args(argv)
 
+    from burn_raymarching.utils.compile_cache import (
+        configure_compile_cache,
+    )
+
+    configure_compile_cache()
+
     import jax.numpy as jnp
 
     from burn_raymarching.data.camera import create_camera_rays

@@ -56,7 +56,7 @@ def transform_points(points: np.ndarray, center: np.ndarray,
     (p - center) * scale — a prior left in the old frame is offset by the
     full recenter shift (found by the round-3 capture-chain integration
     test). The TS reference tooling has no point path, so this transform is
-    TPU-repo-native.
+    this repository's own addition.
     """
     return ((np.asarray(points, np.float64).reshape(-1, 3) - center)
             * scale).astype(np.float32)

@@ -1,8 +1,9 @@
 """Training CLI — the reference's train binary as a configurable command.
 
 Equivalent of src/bin/train.rs but with every hardcoded hyperparameter
-exposed (the reference has no flag system at all, SURVEY §5), plus resume,
-device-mesh selection, and the Pallas fast path.
+exposed (the reference has no flag system at all, SURVEY §5), plus resume
+and the GPU march kernels (ops/kernels.py; --no-pallas selects the plain
+XLA march).
 
 Usage:
   python -m burn_raymarching.tools.train_cli [--cameras data/cameras.json]
@@ -36,7 +37,6 @@ def build_config(args) -> "TrainConfig":
         overrides["use_pallas"] = False
     if args.turbo:
         overrides["warm_start"] = True
-        overrides["use_fused_shade"] = True
     if getattr(args, "stage_guard", False):
         overrides["stage_guard"] = True
         overrides["stage_guard_retries"] = args.stage_guard_retries
@@ -119,6 +119,8 @@ def build_config(args) -> "TrainConfig":
 
 
 def main(argv=None):
+    """Parse ``argv`` and train. Returns (trainer, padded params, mask) of
+    the exported scene."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--cameras", default="data/cameras.json")
     parser.add_argument("--scene-out", dest="scene_out", default="scene.json")
@@ -146,9 +148,10 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--no-pallas", action="store_true")
     parser.add_argument("--turbo", action="store_true",
-                        help="warm-started march + fused custom-VJP shade "
-                             "kernel (validated at reference quality; "
-                             "fastest TPU configuration)")
+                        help="warm-started march: a per-pixel t cache, "
+                             "--warm-steps march steps per training step "
+                             "instead of 40 (validated at reference "
+                             "quality)")
     parser.add_argument("--warm-steps", dest="warm_steps", type=int,
                         default=0,
                         help="march steps per warm-started (--turbo) step "
@@ -219,8 +222,8 @@ def main(argv=None):
                         choices=["", "member", "monopole"],
                         help="far-field order of --cluster-repulsion: "
                              "member (default, member→centroid) or monopole "
-                             "(centroid↔centroid — ~0.7 ms/step cheaper at "
-                             "M=51k, one more approximation order)")
+                             "(centroid↔centroid — ~G× fewer far pairs, one "
+                             "more approximation order)")
     parser.add_argument("--coverage", default="",
                         choices=["", "sigmoid", "gaussian"],
                         help="trainable coverage family: gaussian = the GT "
@@ -325,6 +328,11 @@ def main(argv=None):
 
     cfg = build_config(args)
     from burn_raymarching.train.loop import Trainer, build_dataset
+    from burn_raymarching.utils.compile_cache import (
+        configure_compile_cache,
+    )
+
+    configure_compile_cache()
 
     dataset = build_dataset(cfg)
     print(f"Total training pixels: {dataset.num_total_pixels}")
@@ -345,7 +353,7 @@ def main(argv=None):
                                     accept_temp=args.refine_temp,
                                     fringe_weight=args.refine_fringe,
                                     light_proposals=args.refine_light)
-        return
+        return trainer, padded, mask
 
     # Best-of-N: the density-control trajectory is stochastic; train N seeds
     # and keep the best by PSNR against the training views.
@@ -373,7 +381,6 @@ def main(argv=None):
         res = evaluate_views(
             padded, cams, tgts, cfg.width, cfg.height, mask=mask,
             smooth_k=cfg.max_smooth_k,
-            march_fn=trainer.march_fn,
             march_normal_fn=trainer.march_normal_fn,
             softmax_sharpness=cfg.render.softmax_sharpness,
             mask_sharpness=cfg.render.mask_sharpness,
@@ -391,7 +398,6 @@ def main(argv=None):
         res = evaluate_views(
             padded, cams, tgts, cfg.width, cfg.height, mask=mask,
             smooth_k=cfg.max_smooth_k,
-            march_fn=trainer.march_fn,
             march_normal_fn=trainer.march_normal_fn,
             softmax_sharpness=cfg.render.softmax_sharpness,
             mask_sharpness=cfg.render.mask_sharpness,
@@ -409,6 +415,7 @@ def main(argv=None):
             cameras=cams, targets=tgts)
     export_scene_json(padded, cfg.scene_json, mask=np.asarray(mask))
     print(f"🏆 Best seed {seed}: PSNR {psnr:.2f} → {cfg.scene_json}")
+    return trainer, padded, mask
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Offline scene viewer — batch novel-view renderer for scene.json.
 
-TPU-host substitute for the reference's interactive winit/WGSL viewer
-(src/bin/viewer.rs + shader.wgsl): no window system on a TPU host, so this
-renders orbit frames (or a single pose) to PNGs / an MP4 via the SAME
+Headless substitute for the reference's interactive winit/WGSL viewer
+(src/bin/viewer.rs + shader.wgsl): accelerator hosts have no window system,
+so this renders orbit frames (or a single pose) to PNGs / an MP4 via the SAME
 inference forward model the reference's fragment shader implements —
 exponential smooth-min k=32, learnable light + ambient blend, exp(-10d)
 color weights. The scene.json contract is preserved, so the reference's own
@@ -141,6 +141,12 @@ def main(argv=None):
     parser.add_argument("--video", default=None,
                         help="also write an MP4 (requires imageio/ffmpeg)")
     args = parser.parse_args(argv)
+
+    from burn_raymarching.utils.compile_cache import (
+        configure_compile_cache,
+    )
+
+    configure_compile_cache()
 
     from burn_raymarching.data.image_io import save_array_as_image
     from burn_raymarching.data.scene_io import load_scene_json

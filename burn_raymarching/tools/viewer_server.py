@@ -1,7 +1,7 @@
 """Interactive scene viewer over HTTP.
 
 The reference's viewer is a native winit/wgpu window with WASD+arrow
-controls at 60 fps (src/bin/viewer.rs:202-207). TPU hosts are headless,
+controls at 60 fps (src/bin/viewer.rs:202-207). GPU hosts are headless,
 so the interactive equivalent is a localhost web app: a tiny HTTP server
 renders frames on the accelerator on demand and a canvas page provides
 the same controls (WASD move, arrows orbit, mouse-drag orbit, +/- zoom).
@@ -18,13 +18,12 @@ keeps its own compiled renderer, so the low-res path stays warm.
 Usage:
   python -m burn_raymarching.tools.viewer_server scene.json
       [--port 8000] [--size 384] [--model viewer|train]
-then open http://localhost:8000/ (port-forward from the TPU host).
+then open http://localhost:8000/ (port-forward from the GPU host).
 """
 
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import math
 import threading
@@ -123,13 +122,10 @@ class _ViewerState:
         with self.lock:  # one accelerator render at a time
             img = render_pose(self.scene, eye, [cx, cy, cz], size,
                               model=self.model)
-        from PIL import Image
+        from burn_raymarching.data.image_io import encode_png
 
         u8 = (np.clip(img, 0, 1) ** (1 / 2.2) * 255).astype(np.uint8)
-        im = Image.fromarray(u8.reshape(size, size, 3))
-        buf = io.BytesIO()
-        im.save(buf, format="PNG")
-        return buf.getvalue()
+        return encode_png(u8.reshape(size, size, 3))
 
 
 def make_handler(state: _ViewerState):
@@ -188,6 +184,12 @@ def main(argv=None):
     parser.add_argument("--model", choices=("viewer", "train"),
                         default="viewer")
     args = parser.parse_args(argv)
+
+    from burn_raymarching.utils.compile_cache import (
+        configure_compile_cache,
+    )
+
+    configure_compile_cache()
 
     state = _ViewerState(args.scene, args.size, args.model)
     server = ThreadingHTTPServer(("127.0.0.1", args.port),

@@ -60,7 +60,7 @@ def merge_redundant(
 ):
     """Merge primitives sharing a quantized grid cell of size ``cell``.
 
-    TPU-native density-control extension (DensityConfig.merge_cell; the
+    density-control extension (DensityConfig.merge_cell; the
     reference has no overlap rule — its 6-7 fat spheres never stack).
     Prior-seeded clouds put ~25 primitives on each SfM point; a stack
     renders as one soft-min-inflated blob and multiplies every per-tile

@@ -37,7 +37,6 @@ def evaluate_views(
     height: int,
     smooth_k: float = 32.0,
     mask=None,
-    march_fn=None,
     march_normal_fn=None,
     chunk: int = 4096,
     softmax_sharpness: float = 10.0,
@@ -59,8 +58,7 @@ def evaluate_views(
         ro, rd = create_camera_rays(width, height, cam["origin"],
                                     cam["target"], cam["fov"])
         img = render_tiled(params, ro, rd, smooth_k=smooth_k, mask=mask,
-                           chunk=chunk, march_fn=march_fn,
-                           march_normal_fn=march_normal_fn,
+                           chunk=chunk, march_normal_fn=march_normal_fn,
                            softmax_sharpness=softmax_sharpness,
                            mask_sharpness=mask_sharpness,
                            cull=cull, clusters=clusters,

@@ -39,9 +39,8 @@ class RepulsionStatic(NamedTuple):
     exact near field vs the monopole far field — an approximation-order
     choice, not a gradient-topology change; the per-step differentiable
     pieces (member positions, centroids, neighbor positions) are always
-    recomputed live. Measured motivation: the per-step prep (top-k +
-    one-hot + table gathers) cost ~1.4 ms of the 6.94 ms M=51k warm step
-    (docs/PARITY.md; VERDICT r4 item 2).
+    recomputed live. The per-step prep (top-k + one-hot + table gathers)
+    carries no gradient, so recomputing it every step buys nothing.
     """
 
     nb: jax.Array        # [C, W] int32 near-cluster ids (own included)
@@ -190,15 +189,9 @@ def cluster_repulsion(
 
     # Exact near-field pairs: members of each cluster vs members of its W
     # nearest clusters, with the reference's +100 on true self-pairs.
-    # NOTE: the chained take(cs, nb) gathers whole [G, 3] cluster blocks
-    # (6,400 contiguous blocks at M=51k); flattening it to a direct
-    # take(centers, member_idx[nb]) is value/gradient-identical but
-    # shreds it into W·G·C tiny row gathers — measured ~2x the whole
-    # train step on TPU (round 5). Keep the block-structured form.
-    # SECOND round-5 negative: replacing this take's scatter-add VJP with
-    # the chunk-frozen one-hot matmul (ops/static_gather.take_blocks via
-    # static.nb_hot_t) measured the M=51k warm step 6.85 -> 7.32 ms —
-    # XLA's block scatter beats the 20 MB hot-table matmul here.
+    # The chained take(cs, nb) gathers whole [G, 3] cluster blocks;
+    # a direct take(centers, member_idx[nb]) is value/gradient-identical
+    # but shreds it into W·G·C tiny row gathers.
     nb_cs = jnp.take(cs, nb, axis=0).reshape(c_count, w_near * g, 3)
     d2 = jnp.sum((cs[:, :, None, :] - nb_cs[:, None, :, :]) ** 2, axis=3)
     dist = jnp.sqrt(jnp.maximum(d2, 1e-6))                   # [C, G, W·G]
@@ -270,7 +263,6 @@ def compute_loss(
     cfg: LossConfig = LossConfig(),
     model_axis: Optional[str] = None,   # set inside shard_map when M is sharded
     repulsion_clusters=None,  # PrimitiveClusters → two-level repulsion
-    repulsion_fn=None,        # TPU: ops.pallas.repulsion_kernel fused VJP
     repulsion_static=None,    # RepulsionStatic (single-device, per-chunk)
 ) -> jax.Array:
     # --- 1. Weighted L1 reconstruction (training.rs:15-34) ---
@@ -320,21 +312,13 @@ def compute_loss(
 
     # --- 5. Pairwise repulsion (training.rs:73-83) ---
     if repulsion_clusters is not None:
-        if repulsion_fn is not None and model_axis is None:
-            # Fused VMEM kernel with recompute-based custom VJP
-            # (ops/pallas/repulsion_kernel.py) — same decomposition.
-            repulsion = repulsion_fn(params.centers, repulsion_clusters,
-                                     mask, n_valid,
-                                     far_field=cfg.repulsion_far_field,
-                                     static=repulsion_static)
-        else:
-            repulsion = cluster_repulsion(params.centers, repulsion_clusters,
-                                          mask, n_valid,
-                                          model_axis=model_axis,
-                                          far_field=cfg.repulsion_far_field,
-                                          static=(repulsion_static
-                                                  if model_axis is None
-                                                  else None))
+        repulsion = cluster_repulsion(params.centers, repulsion_clusters,
+                                      mask, n_valid,
+                                      model_axis=model_axis,
+                                      far_field=cfg.repulsion_far_field,
+                                      static=(repulsion_static
+                                              if model_axis is None
+                                              else None))
         return loss + repulsion * cfg.repulsion_coeff
     # With M sharded, each device holds the [M_local, M_global] row block:
     # centers (tiny) are all-gathered, the row sums psum'd.

@@ -5,7 +5,7 @@ The reference's split rule is an ABSOLUTE radius threshold
 spheres. On prior-seeded compact clouds (configs 4-5, radii ~0.02-0.1) that
 threshold never fires, so the signature grow-by-splitting dynamic is dead in
 exactly the regime where the committed runs sit ~2.5-3 dB below their
-representational ceiling (VERDICT r2). This module supplies the TPU-native
+representational ceiling (VERDICT r2). This module supplies the
 replacement signal: attribute the rendered L1 residual to primitives through
 the compositor weights (the same quantity 3DGS reads from its view-space
 positional gradients), so density control can split WHERE THE ERROR IS,
@@ -40,7 +40,6 @@ from burn_raymarching.ops.culling import (
 from burn_raymarching.render.culled import (
     _MASKED_NEG,
     _tile_dists,
-    _tile_normals,
     _tile_soft_min,
     culled_march_normals_xla,
 )

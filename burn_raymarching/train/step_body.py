@@ -17,9 +17,9 @@ loss) — the axes are the only difference:
     compositing combine shards with the two-pass pmax+psum logsumexp
     (render/culled.py, ops/sdf.py), replicated leaves (light, ambient) get
     their partial grads psum'd, and cluster tables arrive in GLOBAL row ids
-    (converted to shard-local here). The fused single-device kernels cannot
-    issue per-iteration collectives, so the march runs in XLA
-    (render/culled.culled_march_normals_xla) on this path.
+    (converted to shard-local here). The single-device march kernels cannot
+    issue per-iteration collectives: the culled march gathers union tables
+    first (sharded_culled_kernel_march), the dense march runs in XLA.
 """
 
 from __future__ import annotations
@@ -143,8 +143,8 @@ def sharded_culled_kernel_march(
     """Fused-kernel march under an M-SHARDED primitive table.
 
     The per-iteration sharded march needs the GLOBAL soft-min every step
-    (pmax/psum in the XLA twin — 40 collective pairs plus HBM round-trips;
-    the measured +10.8% model-shard step cost, runs/r3_hw:model_gap). This
+    (pmax/psum in the XLA twin — 40 collective pairs plus HBM round-trips
+    per march). This
     instead exchanges the tiny detached selection TABLES once: an
     all_to_all turns each device's [B, K] shard-local table into its
     [B/S, S·K] tile-slice of the UNION table (the received K-blocks all
@@ -154,7 +154,7 @@ def sharded_culled_kernel_march(
     (B/S)·(S·K) — and one all_gather redistributes the detached
     (t, normal). The union soft-min is exactly the pmax/psum soft-min
     (same table entries; invalid slots carry zero weight), so semantics
-    match the XLA twin bit-for-reduction-order.
+    match the XLA twin up to reduction order.
     """
     b = ro3.shape[0]
     bs = b // model_size
@@ -181,10 +181,8 @@ def sharded_culled_kernel_march(
 def make_device_step(
     cfg: TrainConfig,
     *,
-    march_fn: Callable,
-    march_normal_fn: Optional[Callable],
-    culled_march_fn: Optional[Callable],
-    repulsion_fn: Optional[Callable],
+    march_normal_fn: Callable,
+    culled_march_fn: Callable,
     batch: int,
     warm: bool,
     data_axis: Optional[str] = None,
@@ -280,20 +278,9 @@ def make_device_step(
             # stay tile-coherent after expansion; tgt stays per-pixel.
             ro, rd = expand_subpixel(ro, rd, ss, rc.pixel_angle)
 
-        mn_fn = march_normal_fn
-        # The fused shade kernel hard-codes the reference's compositor
-        # constants and single-device tables; non-default sharpness
-        # (fine-structure scenes) and M-sharded runs route through the
-        # parameterized XLA path.
-        fused_shade = (march_normal_fn is not None
-                       and cfg.use_fused_shade
-                       and not cfg.use_culling
-                       and model_axis is None
-                       and rc.mask_pixel_mult == 0.0
-                       and rc.coverage_mode == "sigmoid"
-                       and (rc.softmax_sharpness,
-                            rc.mask_sharpness) == (10.0, 15.0))
-        t = normal = None
+        # The dense march kernel sees one whole table: under an M-sharded
+        # table the renderer's own XLA march (pmax/psum soft-min) runs.
+        mn_fn = march_normal_fn if model_axis is None else None
         culled_pre = None
         if cfg.use_culling:
             # Detached selection + culled march/normals OUTSIDE the autodiff
@@ -328,15 +315,14 @@ def make_device_step(
             b_t = batch // cfg.cull_tile
             ro3 = ro.reshape(b_t, cfg.cull_tile, 3)
             rd3 = rd.reshape(b_t, cfg.cull_tile, 3)
-            # March backend: the fused kernel directly on single-device
-            # tables; under an M-sharded table, the all_to_all union-table
-            # wrapper keeps the kernel (and drops the per-iteration
-            # pmax/psum) whenever the tile batch splits evenly over the
-            # model axis; XLA twin otherwise.
-            if culled_march_fn is not None and model_axis is None:
+            # The march on single-device tables directly; under an
+            # M-sharded table, the all_to_all union-table wrapper keeps it
+            # (and drops the per-iteration pmax/psum) whenever the tile
+            # batch splits evenly over the model axis; the XLA twin with
+            # per-step collectives otherwise.
+            if model_axis is None:
                 kern = culled_march_fn
-            elif (culled_march_fn is not None and model_size > 1
-                  and b_t % model_size == 0):
+            elif model_size > 1 and b_t % model_size == 0:
                 kern = lambda *a, **kw: sharded_culled_kernel_march(  # noqa: E731
                     culled_march_fn, model_axis, model_size, *a, **kw)
             else:
@@ -363,27 +349,23 @@ def make_device_step(
                     num_steps=rc.march_steps,
                     normal_eps=rc.normal_eps)
             culled_pre = (idx_t, valid_t, t, normal)
-        elif (warm or fused_shade) and model_axis is None:
-            # Detached dense march outside the grad path. The dense kernel
+        elif warm and model_axis is None:
+            # Detached dense march outside the grad path. The dense march
             # computes the soft-min over its whole table, so it cannot see a
-            # sharded M — warm/fused dense paths are single-device-table
-            # only (large-M sharded runs use culling anyway).
+            # sharded M — the warm dense path is single-device-table only
+            # (large-M sharded runs use culling anyway).
             centers_p, _, radii_p, _, _ = activate(
                 jax.lax.stop_gradient(params))
-            if warm:
-                t0 = (jnp.take(t_cache, idx)[:, None] * cfg.warm_backoff)
-                if ss > 1:
-                    t0 = jnp.repeat(t0, ss, axis=0)
-                t, normal = march_normal_fn(
-                    ro, rd, centers_p, radii_p, smooth_k, mask=mask,
-                    num_steps=cfg.warm_steps, t_init=t0)
-                t_new = t[:, 0]
-                if ss > 1:
-                    t_new = jnp.mean(t_new.reshape(-1, ss), axis=1)
-                t_cache = t_cache.at[idx].set(t_new)
-            else:
-                t, normal = march_normal_fn(
-                    ro, rd, centers_p, radii_p, smooth_k, mask=mask)
+            t0 = (jnp.take(t_cache, idx)[:, None] * cfg.warm_backoff)
+            if ss > 1:
+                t0 = jnp.repeat(t0, ss, axis=0)
+            t, normal = march_normal_fn(
+                ro, rd, centers_p, radii_p, smooth_k, mask=mask,
+                num_steps=cfg.warm_steps, t_init=t0)
+            t_new = t[:, 0]
+            if ss > 1:
+                t_new = jnp.mean(t_new.reshape(-1, ss), axis=1)
+            t_cache = t_cache.at[idx].set(t_new)
             t_det, n_det = t, normal
             mn_fn = lambda *a, **kw: (t_det, n_det)  # noqa: E731
 
@@ -409,18 +391,8 @@ def make_device_step(
                     mask_pixel_mult=rc.mask_pixel_mult,
                     pixel_angle=rc.pixel_angle,
                     coverage_mode=rc.coverage_mode)
-            elif fused_shade:
-                from burn_raymarching.ops.pallas.shade_kernel import (
-                    shade_fused,
-                )
-
-                c_p, col_p, r_p, ld_p, amb_p = activate(p)
-                out = shade_fused(ro, rd, t, normal, c_p, r_p,
-                                  col_p, ld_p, amb_p, smooth_k,
-                                  mask=mask)
             else:
                 out = scene_forward(p, ro, rd, smooth_k, mask=mask,
-                                    march_fn=march_fn,
                                     model_axis=model_axis,
                                     march_normal_fn=mn_fn,
                                     num_steps=rc.march_steps,
@@ -439,10 +411,8 @@ def make_device_step(
                 p, out, tgt, progress, mask=mask, cfg=cfg.loss,
                 model_axis=model_axis,
                 repulsion_clusters=rep_clusters,
-                # The fused repulsion kernel is single-device-table only,
-                # as are the chunk-frozen static prep tables (the sharded
-                # path computes its prep in-step).
-                repulsion_fn=repulsion_fn if model_axis is None else None,
+                # The chunk-frozen static prep tables are single-device
+                # only (the sharded path computes its prep in-step).
                 repulsion_static=(rep_static if model_axis is None
                                   else None))
 

@@ -11,9 +11,7 @@ from __future__ import annotations
 def bucket_size(n: int, minimum: int = 8) -> int:
     """Next power-of-two bucket ≥ n (≥ ``minimum``).
 
-    Power-of-two buckets mean at most one recompile per doubling; the lane
-    dimension of the hot [N, M] matrices stays comfortably padded for the
-    TPU's (8, 128) fp32 tiles once M ≥ 128.
+    Power-of-two buckets mean at most one recompile per doubling.
     """
     if n <= minimum:
         return minimum

@@ -1,7 +1,7 @@
 // Native host-side components for burn_raymarching.
 //
 // The reference implements all host-side work in compiled Rust; these are
-// the TPU-framework equivalents in C++, exposed through a C ABI for ctypes:
+// the framework's host-side equivalents in C++, exposed through a C ABI for ctypes:
 //
 //   * prune_and_split — adaptive density control recompaction between
 //     training stages (reference src/training.rs:87-238). Data-dependent,

@@ -1,6 +1,6 @@
 """Pixel-footprint-adaptive coverage (RenderConfig.mask_pixel_mult).
 
-TPU-native extension, default off — these tests pin (a) exact equality
+extension, default off — these tests pin (a) exact equality
 with the reference's fixed sigmoid when disabled, (b) the adaptive
 formula itself, (c) the anti-aliasing behavior (distant silhouettes keep
 partial-coverage edge pixels instead of collapsing to near-binary), and

@@ -1,6 +1,6 @@
 """Gaussian coverage mode (RenderConfig.coverage_mode="gaussian").
 
-TPU-native extension, default off. The reference trains a sigmoid
+extension, default off. The reference trains a sigmoid
 silhouette (renderer_diff.rs:86-90) against targets masked with a Gaussian
 exp(-s*d^2) (renderer.rs:77); the family mismatch is baked into the
 measured representational ceilings (docs/SCALING.md). These tests pin
@@ -154,7 +154,7 @@ def test_gaussian_mode_closes_gap_to_gt_forward(scene):
     assert err("gaussian", 10.0) < 0.5 * err("sigmoid", 15.0)
 
 
-def test_coverage_mode_stage_schedule(tmp_path, monkeypatch):
+def test_coverage_mode_stage_schedule(tmp_path, monkeypatch, scene_root):
     """coverage_mode_stages builds one step program per family and the
     trained output matches the FINAL mode's forward: a ("sigmoid",
     "gaussian") schedule must end with params whose last-stage trajectory
@@ -171,10 +171,10 @@ def test_coverage_mode_stage_schedule(tmp_path, monkeypatch):
         use_pallas=False, checkpoint_dir=None,
         coverage_mode_stages=("sigmoid", "gaussian"),
         render=RenderConfig(coverage_mode="gaussian"),
-        cameras_json="/root/reference/data/cameras.json",
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     cwd = os.getcwd()
-    os.chdir("/root/reference")
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:
@@ -194,7 +194,7 @@ def test_coverage_mode_stage_schedule(tmp_path, monkeypatch):
         assert np.isfinite(np.asarray(leaf)).all()
 
 
-def test_coverage_schedule_stage_program_differs():
+def test_coverage_schedule_stage_program_differs(scene_root):
     """The two stage programs really compute different coverages: one
     step under each mode from identical inputs produces different params."""
     import os
@@ -212,10 +212,10 @@ def test_coverage_schedule_stage_program_differs():
         use_pallas=False, checkpoint_dir=None,
         coverage_mode_stages=("sigmoid", "gaussian"),
         render=RenderConfig(coverage_mode="gaussian"),
-        cameras_json="/root/reference/data/cameras.json",
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     cwd = os.getcwd()
-    os.chdir("/root/reference")
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:
@@ -238,7 +238,7 @@ def test_coverage_schedule_stage_program_differs():
     assert np.abs(outs[0] - outs[1]).max() > 1e-7
 
 
-def test_mask_sharpness_stage_schedule():
+def test_mask_sharpness_stage_schedule(scene_root):
     """mask_sharpness_stages composes with coverage_mode_stages: one step
     program per distinct override pair, overrides visible in the stage
     cfg, and the no-schedule path returns the prebuilt step fn."""
@@ -255,10 +255,10 @@ def test_mask_sharpness_stage_schedule():
         coverage_mode_stages=("sigmoid", "gaussian"),
         mask_sharpness_stages=(15.0, 10.0, 40.0),
         render=RenderConfig(coverage_mode="gaussian", mask_sharpness=40.0),
-        cameras_json="/root/reference/data/cameras.json",
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     cwd = os.getcwd()
-    os.chdir("/root/reference")
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:
@@ -287,7 +287,7 @@ def test_mask_sharpness_stage_schedule():
     assert tr2._step_for_stage(0) is tr2._step_fn
 
 
-def test_schedule_final_mode_must_match_eval_forward():
+def test_schedule_final_mode_must_match_eval_forward(scene_root):
     """Review r3: a schedule whose last entry differs from the base render
     config would make polish/eval measure a different forward than the one
     trained — Trainer must refuse at construction."""
@@ -300,9 +300,9 @@ def test_schedule_final_mode_must_match_eval_forward():
 
     cfg0 = TrainConfig(batch_size=256, use_pallas=False,
                        checkpoint_dir=None,
-                       cameras_json="/root/reference/data/cameras.json")
+                       cameras_json=os.path.join(scene_root, "data/cameras.json"))
     cwd = os.getcwd()
-    os.chdir("/root/reference")
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg0)
     finally:

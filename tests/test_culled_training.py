@@ -8,17 +8,17 @@ from burn_raymarching.train.loop import Trainer, build_dataset
 
 
 @pytest.fixture(scope="module")
-def cfg_ds(reference_dir):
+def cfg_ds(scene_root):
     import os
 
     cfg = TrainConfig(
         batch_size=1024, stages=1, steps_per_stage=10, steps_per_call=10,
         use_pallas=False, use_culling=True, cull_budget=16, cull_tile=256,
         dataset_order="morton", checkpoint_dir=None,
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:
@@ -26,14 +26,14 @@ def cfg_ds(reference_dir):
     return cfg, ds
 
 
-def test_morton_dataset_same_pixel_set(cfg_ds, reference_dir):
+def test_morton_dataset_same_pixel_set(cfg_ds, scene_root):
     import os
 
     cfg, ds = cfg_ds
     raster_cfg = TrainConfig(
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"))
+        cameras_json=os.path.join(scene_root, "data/cameras.json"))
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         ds_raster = build_dataset(raster_cfg)
     finally:

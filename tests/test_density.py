@@ -110,7 +110,7 @@ def test_split_directions_uniformish():
 
 
 def test_merge_redundant_stacks():
-    """merge_cell (TPU-native extension): a 10-deep stack in one grid cell
+    """merge_cell (extension): a 10-deep stack in one grid cell
     collapses to one primitive with mean center/color and MAX radius; a
     far-away primitive is untouched."""
     from burn_raymarching.config import DensityConfig

@@ -152,8 +152,8 @@ def test_distributed_residual_split_grows(tiny_dataset):
 def test_auto_steps_per_call_targets(tiny_dataset):
     """steps_per_call=0 (auto) resolves to the largest divisor of
     steps_per_stage up to the driver target: 100 single-chip, 350 sharded
-    (the measured <10%-overhead point, runs/r4_hw/dist_overhead_spc.json
-    — VERDICT r4 item 3). Explicit values are honored unchanged."""
+    (not yet re-derived on the GPU, ROADMAP). Explicit values are honored
+    unchanged."""
     from burn_raymarching.train.loop import Trainer
 
     def single(**kw):

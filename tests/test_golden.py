@@ -13,10 +13,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from PIL import Image
 
 from burn_raymarching.data.camera import create_camera_rays
-from burn_raymarching.data.image_io import load_image_as_array, save_array_as_image
+from burn_raymarching.data.image_io import (
+    load_image_as_array,
+    read_png,
+    save_array_as_image,
+)
 from burn_raymarching.render.gt import render_gt
 
 # Dataset-generator ground truth (reference src/bin/generate.rs:29-40).
@@ -49,9 +52,8 @@ def cameras(reference_dir):
 def test_all_golden_views_match(reference_dir, cameras):
     worst_mean = 0.0
     for cam in cameras:
-        ref_png = np.asarray(
-            Image.open(os.path.join(reference_dir, cam["file"])).convert("RGB")
-        ).astype(np.int32)
+        ref_png = read_png(os.path.join(reference_dir, cam["file"]))[
+            ..., :3].astype(np.int32)
         ours = _encode_u8(_render_view(cam)).reshape(256, 256, 3).astype(np.int32)
         diff = np.abs(ours - ref_png)
         mean = diff.mean()
@@ -78,5 +80,5 @@ def test_save_clamps_and_truncates(tmp_path):
     img = np.array([[-0.5, 0.0, 2.0]], np.float32).repeat(4, 0)
     path = str(tmp_path / "cl.png")
     save_array_as_image(img, 2, 2, path)
-    px = np.asarray(Image.open(path))
+    px = read_png(path)
     assert px.reshape(-1, 3)[0].tolist() == [0, 0, 255]

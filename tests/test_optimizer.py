@@ -132,7 +132,7 @@ def test_folded_decay_drifts_at_full_lr_without_data_gradient():
     assert d_decoupled < 1e-5, d_decoupled
 
 
-def test_lr_scale_zero_freezes_group(reference_dir):
+def test_lr_scale_zero_freezes_group(scene_root):
     """lr_scale_centers=0 must leave centers bit-identical over a stage."""
     import dataclasses
     import os
@@ -146,10 +146,10 @@ def test_lr_scale_zero_freezes_group(reference_dir):
     cfg = TrainConfig(
         batch_size=256, stages=1, steps_per_stage=10, steps_per_call=10,
         use_pallas=False, checkpoint_dir=None, lr_scale_centers=0.0,
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:
@@ -168,7 +168,7 @@ def test_lr_scale_zero_freezes_group(reference_dir):
                   - np.asarray(padded0.colors)).max() > 1e-5
 
 
-def test_lr_scale_centers_stage_schedule(reference_dir):
+def test_lr_scale_centers_stage_schedule(scene_root):
     """lr_scale_centers_stages indexes by stage in-graph: a (1.0, 0.0)
     schedule moves centers in stage 0 and freezes them in stage 1 (and the
     clamp holds past the end)."""
@@ -187,7 +187,7 @@ def test_lr_scale_centers_stage_schedule(reference_dir):
         use_pallas=False, checkpoint_dir=None,
         lr_scale_centers=123.0,     # must be ignored once the schedule is set
         lr_scale_centers_stages=(1.0, 0.0),
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     # In-graph values, incl. the past-the-end clamp polish relies on.
     import jax.numpy as jnp
@@ -198,7 +198,7 @@ def test_lr_scale_centers_stage_schedule(reference_dir):
     assert lr_scale_tree(cfg, None).centers == 123.0
 
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:

@@ -1,6 +1,6 @@
 """Scale-aware (residual-driven) split — DensityConfig.split_mode="residual".
 
-TPU-native density-control extension (VERDICT r2 item 1): the reference's
+density-control extension (VERDICT r2 item 1): the reference's
 absolute split threshold (0.25*0.65^stage, training.rs:187) never fires on
 prior-seeded compact clouds, so large scenes can only shrink. These tests
 pin (a) the boundary rule mechanics (prune → merge-with-score-sum → split
@@ -126,19 +126,19 @@ def test_merge_sums_scores_and_runs_before_split():
 
 
 @pytest.fixture(scope="module")
-def knot_ds():
-    """Small culled config + dataset reusing the reference's bundled views."""
+def knot_ds(scene_root):
+    """Small culled config + dataset on the bundled 10-view scene."""
     cfg = TrainConfig(
         batch_size=1024, stages=2, steps_per_stage=10, steps_per_call=10,
         use_pallas=False, use_culling=True, cull_budget=16, cull_tile=256,
         dataset_order="morton", checkpoint_dir=None,
-        cameras_json="/root/reference/data/cameras.json",
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
         density=DensityConfig(split_mode="residual", split_budget=4),
     )
     from burn_raymarching.train.loop import build_dataset
 
     cwd = os.getcwd()
-    os.chdir("/root/reference")
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from burn_raymarching.ops import (
+    direct_sphere_dists,
     pairwise_sphere_dists,
     scene_normal,
     scene_sdf,
@@ -87,6 +88,41 @@ def test_pairwise_dists_expanded_form(rng):
     d2_direct = ((p[:, None, :] - c[None, :, :]) ** 2).sum(-1)
     want_direct = np.sqrt(np.maximum(d2_direct, 1e-6)) - r.T
     np.testing.assert_allclose(got, want_direct, rtol=1e-3, atol=1e-3)
+
+
+def test_direct_dists_match_float64(rng):
+    """The direct form (detached march and normals) is the same function
+    as the expanded form, without its cancellation: float32 close to a
+    float64 evaluation even for points near a small sphere."""
+    c = rng.normal(size=(9, 3)).astype(np.float32)
+    r = rng.uniform(0.01, 0.05, size=(9, 1)).astype(np.float32)
+    p = (c[rng.integers(0, 9, 64)]
+         + rng.normal(0, 0.03, (64, 3))).astype(np.float32)
+    got = np.asarray(direct_sphere_dists(jnp.asarray(p), jnp.asarray(c),
+                                         jnp.asarray(r)))
+    p64, c64 = p.astype(np.float64), c.astype(np.float64)
+    d2 = ((p64[:, None, :] - c64[None, :, :]) ** 2).sum(-1)
+    want = np.sqrt(np.maximum(d2, 1e-6)) - r.T
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    expanded = np.asarray(pairwise_sphere_dists(
+        jnp.asarray(p), jnp.asarray(c), jnp.asarray(r)))
+    np.testing.assert_allclose(got, expanded, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("direct,tol", [(False, 1e-3), (True, 2.5e-4)])
+def test_scene_normal_direct_flag_single_sphere(rng, direct, tol):
+    """Both distance forms give the radial normal of one sphere; the
+    direct form's float32 tap differences are the less noisy (the unit
+    normal here is the output renormalized, ~5x its raw error)."""
+    c = np.array([[0.2, -0.1, 0.3]], np.float32)
+    r = np.array([[0.3]], np.float32)
+    u = rng.normal(size=(32, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    p = (c + 0.3 * u).astype(np.float32)
+    got = np.asarray(scene_normal(jnp.asarray(p), jnp.asarray(c),
+                                  jnp.asarray(r), 32.0, direct=direct))
+    got = got / np.linalg.norm(got, axis=1, keepdims=True)
+    np.testing.assert_allclose(got, u, atol=tol)
 
 
 def test_scene_sdf_masked_equals_unpadded(rng):

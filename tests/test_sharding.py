@@ -316,7 +316,7 @@ def test_sharded_culled_cluster_repulsion_step_runs_finite(scene):
 
 
 def test_sharded_kernel_march_matches_xla_twin(scene):
-    """The all_to_all union-table fused-kernel march (train/step_body.
+    """The all_to_all union-table kernel march (train/step_body.
     sharded_culled_kernel_march) must equal the per-iteration pmax/psum
     XLA twin: same table entries, different reduction structure only."""
     from functools import partial
@@ -325,8 +325,8 @@ def test_sharded_kernel_march_matches_xla_twin(scene):
         select_tile_primitives,
         tile_cones,
     )
-    from burn_raymarching.ops.pallas.culled_march_kernel import (
-        culled_march_normals_pallas,
+    from burn_raymarching.ops.pallas.march_kernel import (
+        culled_march_normals_triton,
     )
     from burn_raymarching.render.culled import culled_march_normals_xla
     from burn_raymarching.train.step_body import (
@@ -340,7 +340,8 @@ def test_sharded_kernel_march_matches_xla_twin(scene):
     radii = jax.nn.softplus(params.radii) + 0.01
     tile = 16
     b = ro.shape[0] // tile            # 16 tiles, 4 per model column
-    kern = partial(culled_march_normals_pallas, interpret=True, tile_t=8)
+    kern = partial(culled_march_normals_triton, interpret=True,
+                   block_rays=8)
 
     def dev(c_l, r_l, mask_l):
         cones = tile_cones(ro, rd, tile)
@@ -388,8 +389,8 @@ def test_sharded_kernel_march_warm_start(scene):
         select_tile_primitives,
         tile_cones,
     )
-    from burn_raymarching.ops.pallas.culled_march_kernel import (
-        culled_march_normals_pallas,
+    from burn_raymarching.ops.pallas.march_kernel import (
+        culled_march_normals_triton,
     )
     from burn_raymarching.render.culled import culled_march_normals_xla
     from burn_raymarching.train.step_body import (
@@ -403,7 +404,8 @@ def test_sharded_kernel_march_warm_start(scene):
     radii = jax.nn.softplus(params.radii) + 0.01
     tile = 16
     b = ro.shape[0] // tile
-    kern = partial(culled_march_normals_pallas, interpret=True, tile_t=8)
+    kern = partial(culled_march_normals_triton, interpret=True,
+                   block_rays=8)
     t_init = jnp.full((b, tile, 1), 0.5, jnp.float32)
 
     def dev(c_l, r_l, mask_l):

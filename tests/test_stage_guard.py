@@ -21,22 +21,22 @@ from burn_raymarching.train.loop import Trainer, build_dataset
 
 
 @pytest.fixture(scope="module")
-def dataset(reference_dir):
+def dataset(scene_root):
     cfg = TrainConfig(
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"))
+        cameras_json=os.path.join(scene_root, "data/cameras.json"))
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         return build_dataset(cfg)
     finally:
         os.chdir(cwd)
 
 
-def _cfg(reference_dir, **kw):
+def _cfg(scene_root, **kw):
     return TrainConfig(
         batch_size=512, stages=1, steps_per_stage=20, steps_per_call=20,
         use_pallas=False, checkpoint_dir=None,
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
         stage_guard=True, **kw)
 
 
@@ -51,10 +51,10 @@ def _collapse(padded: SceneParams) -> SceneParams:
         ambient=padded.ambient)
 
 
-def test_guard_retries_bad_stage_and_recovers(reference_dir, dataset,
+def test_guard_retries_bad_stage_and_recovers(scene_root, dataset,
                                               tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    cfg = _cfg(reference_dir, stage_guard_retries=2)
+    cfg = _cfg(scene_root, stage_guard_retries=2)
     logs = []
     tr = Trainer(cfg, dataset, log=logs.append)
     real = Trainer.run_stage
@@ -76,10 +76,10 @@ def test_guard_retries_bad_stage_and_recovers(reference_dir, dataset,
     assert float(np.asarray(padded.colors).max()) < 29.0
 
 
-def test_guard_keeps_best_when_all_attempts_fail(reference_dir, dataset,
+def test_guard_keeps_best_when_all_attempts_fail(scene_root, dataset,
                                                  tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    cfg = _cfg(reference_dir, stage_guard_retries=1,
+    cfg = _cfg(scene_root, stage_guard_retries=1,
                stage_guard_min_gain_db=100.0)   # unreachable bar
     logs = []
     tr = Trainer(cfg, dataset, log=logs.append)
@@ -101,13 +101,13 @@ def test_guard_keeps_best_when_all_attempts_fail(reference_dir, dataset,
         assert np.isfinite(np.asarray(leaf)).all()
 
 
-def test_boundary_guard_rerolls_bad_density_draw(reference_dir, dataset,
+def test_boundary_guard_rerolls_bad_density_draw(scene_root, dataset,
                                                  tmp_path, monkeypatch):
     """A density-control draw that tanks PSNR by more than
     stage_guard_boundary_db is re-rolled with a fresh rng (the measured
     collapse mechanism: a bad stochastic split before the stage runs)."""
     monkeypatch.chdir(tmp_path)
-    cfg = _cfg(reference_dir, stage_guard_retries=2)
+    cfg = _cfg(scene_root, stage_guard_retries=2)
     cfg = dataclasses.replace(cfg, stages=2)
     logs = []
     tr = Trainer(cfg, dataset, log=logs.append)
@@ -132,10 +132,10 @@ def test_boundary_guard_rerolls_bad_density_draw(reference_dir, dataset,
     assert os.path.exists("scene.json")
 
 
-def test_guard_off_never_evaluates(reference_dir, dataset, tmp_path,
+def test_guard_off_never_evaluates(scene_root, dataset, tmp_path,
                                    monkeypatch):
     monkeypatch.chdir(tmp_path)
-    cfg = dataclasses.replace(_cfg(reference_dir), stage_guard=False)
+    cfg = dataclasses.replace(_cfg(scene_root), stage_guard=False)
     tr = Trainer(cfg, dataset, log=lambda s: None)
 
     def boom(*a, **kw):

@@ -100,14 +100,14 @@ def test_supersampled_render_differs_only_in_silhouette_band():
 
 
 @pytest.fixture(scope="module")
-def dataset(reference_dir):
+def dataset(scene_root):
     from burn_raymarching.train.loop import build_dataset
 
     cfg = TrainConfig(
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
         dataset_order="morton")
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         return build_dataset(cfg)
     finally:
@@ -128,12 +128,12 @@ def _run_short(cfg, dataset):
 
 
 def test_trainer_supersample_schedule_dense(dataset, tmp_path, monkeypatch,
-                                            reference_dir):
+                                            scene_root):
     monkeypatch.chdir(tmp_path)
     cfg = TrainConfig(
         batch_size=512, stages=2, steps_per_stage=20, steps_per_call=20,
         use_pallas=False, checkpoint_dir=None, dataset_order="morton",
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
         supersample_stages=(4, 1),
         render=RenderConfig(pixel_angle=PX))
     tr = _run_short(cfg, dataset)
@@ -143,24 +143,24 @@ def test_trainer_supersample_schedule_dense(dataset, tmp_path, monkeypatch,
 
 
 def test_trainer_supersample_culled_tile_mode(dataset, tmp_path, monkeypatch,
-                                              reference_dir):
+                                              scene_root):
     monkeypatch.chdir(tmp_path)
     cfg = TrainConfig(
         batch_size=1024, stages=1, steps_per_stage=10, steps_per_call=10,
         use_pallas=False, checkpoint_dir=None,
         use_culling=True, cull_budget=16, cull_tile=256,
         dataset_order="morton", sample_mode="tile",
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
         supersample_stages=(2, 1),
         render=RenderConfig(pixel_angle=PX))
     _run_short(cfg, dataset)
 
 
-def test_supersample_validation(reference_dir, dataset):
+def test_supersample_validation(scene_root, dataset):
     from burn_raymarching.train.loop import Trainer
 
     base = TrainConfig(
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
         use_pallas=False, checkpoint_dir=None, dataset_order="morton")
     with pytest.raises(ValueError, match="supersample_stages ends"):
         Trainer(dataclasses.replace(

@@ -6,9 +6,8 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
 
-from burn_raymarching.tools.chromakey import chromakey_image
+from burn_raymarching.data.image_io import read_png, write_png
 from burn_raymarching.tools.colmap_to_json import (
     parse_cameras_txt,
     parse_images_txt,
@@ -39,7 +38,7 @@ def test_generate_cli_small(tmp_path, monkeypatch):
     main(["--out", "data", "--size", "32"])
     cams = json.load(open("data/cameras.json"))
     assert len(cams) == 10
-    img = np.asarray(Image.open("data/target_0.png"))
+    img = read_png("data/target_0.png")
     assert img.shape == (32, 32, 3)
     assert img.max() > 0  # spheres visible
 
@@ -49,6 +48,9 @@ def test_chromakey_keeps_center_red_blobs():
     a[200:300, 200:300] = [220, 40, 30]    # bright red center blob
     a[:40, :40] = [220, 40, 30]            # red but at the border
     a[350:400, 350:400] = [20, 20, 200]    # bright blue (not reddish)
+    Image = pytest.importorskip("PIL.Image")
+    from burn_raymarching.tools.chromakey import chromakey_image
+
     out = chromakey_image(Image.fromarray(a))
     assert out.shape == (256, 256, 3)
     center = out[100:150, 100:150]
@@ -108,19 +110,20 @@ def test_perfect_orbit_geometry():
         np.testing.assert_allclose(np.linalg.norm(d), 1.0, atol=1e-9)
 
 
-def test_viewer_offline_renders(tmp_path, reference_dir, monkeypatch):
+def test_viewer_offline_renders(tmp_path, monkeypatch):
     from burn_raymarching.tools.viewer_offline import main
 
+    scene = os.path.join(os.path.dirname(os.path.dirname(__file__)), "docs",
+                         "artifacts", "scene_polished.json")
     monkeypatch.chdir(tmp_path)
-    scene = os.path.join(reference_dir, "scene.json")
     main([scene, "--out", "orbit", "--frames", "2", "--size", "32"])
     assert len(os.listdir("orbit")) == 2
-    img = np.asarray(Image.open("orbit/frame_0000.png"))
+    img = read_png("orbit/frame_0000.png")
     assert img.shape == (32, 32, 3)
 
     main([scene, "--out", "orbit_train", "--frames", "1", "--size", "32",
           "--model", "train"])
-    img2 = np.asarray(Image.open("orbit_train/frame_0000.png"))
+    img2 = read_png("orbit_train/frame_0000.png")
     assert img2.max() > 0
 
 
@@ -193,7 +196,7 @@ def test_train_cli_config_flags(tmp_path):
     assert cfg.render.softmax_sharpness == 40.0
     assert cfg.render.mask_sharpness == 60.0
     assert cfg.lr_scale_centers == 0.001 and cfg.lr_scale_radii == 0.1
-    assert cfg.warm_start and cfg.use_fused_shade
+    assert cfg.warm_start
 
 
 def test_colmap_points3d_parse(tmp_path):
@@ -216,7 +219,7 @@ def test_load_cameras_resolves_relative_paths(tmp_path, monkeypatch):
 
     data = tmp_path / "data"
     data.mkdir()
-    Image.new("RGB", (2, 2)).save(data / "target_0.png")
+    write_png(str(data / "target_0.png"), np.zeros((2, 2, 3), np.uint8))
     cams = [{"file": "data/target_0.png", "origin": [0, 0, -2.5],
              "target": [0, 0, 0], "fov": 50.0}]
     with open(data / "cameras.json", "w") as f:

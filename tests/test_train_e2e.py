@@ -11,13 +11,13 @@ from burn_raymarching.train.loop import Trainer, build_dataset
 
 
 @pytest.fixture(scope="module")
-def dataset(reference_dir):
+def dataset(scene_root):
     cfg = TrainConfig(
-        cameras_json=os.path.join(reference_dir, "data/cameras.json"),
+        cameras_json=os.path.join(scene_root, "data/cameras.json"),
     )
     # The cameras.json 'file' paths are relative to the reference root.
     cwd = os.getcwd()
-    os.chdir(reference_dir)
+    os.chdir(scene_root)
     try:
         ds = build_dataset(cfg)
     finally:
@@ -61,12 +61,12 @@ def test_two_stage_run_produces_artifacts(tmp_path, dataset, monkeypatch):
 
 
 def test_polish_refines_final_scene(tmp_path, dataset, monkeypatch,
-                                    reference_dir):
+                                    scene_root):
     from burn_raymarching.data.image_io import load_image_as_array
     from burn_raymarching.data.scene_io import load_cameras
 
-    cams = load_cameras(os.path.join(reference_dir, "data/cameras.json"))
-    tgts = [load_image_as_array(os.path.join(reference_dir, c["file"]))
+    cams = load_cameras(os.path.join(scene_root, "data/cameras.json"))
+    tgts = [load_image_as_array(os.path.join(scene_root, c["file"]))
             for c in cams]
     monkeypatch.chdir(tmp_path)
     cfg = TrainConfig(
